@@ -1,0 +1,22 @@
+"""PyTorch / CUDA port of oclcomputervision_tpu for one NVIDIA H100.
+
+The JAX package beside this one is the reference: every stage here is held
+against it on the CPU, and every hand-written CUDA kernel is held against its
+plain PyTorch version on the card.
+
+Layers (counterparts of the JAX package's modules of the same names):
+
+- ``kernels``: hand-written CUDA C++ kernels for Hopper (``kernels/csrc``),
+  built with nvcc and bound with ctypes, each beside its plain PyTorch version.
+- ``ops``: plain PyTorch pipelines around the kernels (RAISR inference).
+- ``models``: ``RaisrModel``, the filter bank as an ``nn.Module``.
+- ``utils``: a stdlib PNG reader and CUDA-event timing.
+
+Every entry point takes an explicit device; nothing picks the CPU by itself.
+This package imports no JAX. It reuses the JAX package's JAX-free modules
+(``utils.config``, ``utils.assets``, ``utils.metrics``, ``oracle``).
+"""
+
+from oclcomputervision_tpu_torch._device import require_cuda
+
+__all__ = ["require_cuda"]

@@ -1,0 +1,165 @@
+"""Build the CUDA kernels in ``csrc/`` with nvcc and bind them with ctypes.
+
+All ``csrc/*.cu`` files compile, in one nvcc call, into one shared library
+with a plain C interface (``build/ocv_torch_kernels/libocvk.so`` under the
+repository root). No PyTorch header is included, so a build takes seconds.
+The library is rebuilt whenever a source or a flag changes (a SHA-256 stamp
+sits beside it) and is built at first use, never at import.
+
+Every C entry point takes device pointers, sizes and the CUDA stream, launches
+on that stream and returns ``cudaGetLastError()``; ``launch`` raises on a
+non-zero code. The same pattern as ``oclcomputervision_tpu/utils/_native.py``
+with ``native/build.py``, for the GPU.
+
+``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one where
+it launches its kernel and nowhere else, so a run can show that it went
+through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+SRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(_PKG_DIR)), "build", "ocv_torch_kernels"
+)
+LIB_PATH = os.path.join(BUILD_DIR, "libocvk.so")
+
+# sm_90a: Hopper (H100/H200). -fmad=false keeps every multiply and add
+# separately rounded, as the plain PyTorch versions and the JAX reference
+# compute them; kernels that want a fused multiply-add call fmaf() itself.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+)
+
+LAUNCHES = {"upscale_planes": 0, "raisr_hash": 0, "raisr_apply": 0}
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+# entry point -> argtypes (every pointer and the stream as c_void_p)
+_SIGNATURES = {
+    # x, out, row_off, row_n, row_w, col_off, col_n, col_w,
+    # nimg, h, w, s, hq, wq, nd, stream
+    "ocvk_upscale_planes": [_VP] * 8 + [_I] * 7 + [_VP],
+    # planes, out, k1, squant, cquant, nimg, s, hp, rows, wq, h2p, w2p,
+    # glen, na, ns, nc, nsq, ncq, stream
+    "ocvk_raisr_hash": [_VP] * 5 + [_I] * 13 + [_VP],
+    # planes, buckets, bank, out, nimg, nb, s, fl, hp, rows, wq, h2p,
+    # w2p, nbucket, row_stride, stream
+    "ocvk_raisr_apply": [_VP] * 4 + [_I] * 11 + [_VP],
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _sources() -> list[str]:
+    return sorted(
+        os.path.join(SRC_DIR, f)
+        for f in os.listdir(SRC_DIR)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _digest(sources: list[str]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def build() -> float:
+    """Build the library if it is missing or stale; returns the seconds
+    spent compiling (0.0 when the stamp matched)."""
+    sources = _sources()
+    digest = _digest(sources)
+    stamp = LIB_PATH + ".sha256"
+    if os.path.isfile(LIB_PATH) and os.path.isfile(stamp):
+        with open(stamp) as f:
+            if f.read().strip() == digest:
+                return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(s for s in sources if s.endswith(".cu"))]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {res.returncode}):\n{' '.join(cmd)}\n"
+            f"{res.stdout}{res.stderr}"
+        )
+    os.replace(tmp, LIB_PATH)
+    with open(stamp, "w") as f:
+        f.write(digest)
+    return secs
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        build()
+        lib = ctypes.CDLL(LIB_PATH)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.ocvk_error_string.argtypes = [ctypes.c_int]
+        lib.ocvk_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
+    """Call C entry point ``entry`` on ``device``'s current stream, raise on
+    a CUDA error, and count one launch of ``kernel``."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    if rc != 0:
+        msg = lib.ocvk_error_string(rc).decode()
+        raise RuntimeError(f"{entry}: CUDA error {rc} ({msg})")
+    LAUNCHES[kernel] += 1
+
+
+def require_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of this dtype and rank."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
+    if t.dtype != dtype or t.ndim != ndim:
+        raise ValueError(
+            f"{name} must be {dtype} with {ndim} dims, got {t.dtype} {tuple(t.shape)}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.numel() == 0:
+        raise ValueError(f"{name} is empty")

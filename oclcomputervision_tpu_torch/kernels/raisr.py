@@ -1,0 +1,269 @@
+"""RAISR gradient hash and per-pixel filter select/apply, in plane space.
+
+Ports of ``oclcomputervision_tpu/ops/pallas/raisr_pallas.py``:
+
+- hash: ``hash_planes_pallas``. ``hash_planes`` is the plain PyTorch
+  version, mirroring the XLA twin ``ops/raisr.hash_planes`` (atan2 angle,
+  the blur taps summed in order); ``hash_planes_kernel`` wraps
+  ``csrc/raisr_hash.cu``. Contract: >= 0.9999 bucket agreement (only
+  pixels within float rounding of a quantizer boundary may differ).
+- apply: ``_apply_phase`` / ``apply_filters_planes``.
+  ``apply_filters_planes`` is the plain version; ``apply_filters_planes_kernel``
+  wraps ``csrc/raisr_apply.cu``. Numerics of the TPU kernel: taps and bank
+  rounded to bf16, products (exact in f32) summed in f32. The plain
+  version and the kernel sum the 121 taps in the same order.
+
+Each wrapper takes the plain version for a CPU tensor and launches its
+kernel for a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from oclcomputervision_tpu.oracle.raisr import SOBEL_X, SOBEL_Y
+from oclcomputervision_tpu_torch.kernels._build import launch, require_cuda_tensor
+
+
+def _num_buckets(cfg) -> int:
+    return cfg.num_angle * cfg.num_strength * cfg.num_coherence
+
+
+# ---------------------------------------------------------------------------
+# Hash.
+# ---------------------------------------------------------------------------
+
+
+def _read_phases(planes, src_org, dr, dc, dst_org, rows, cols, s):
+    """Shifted full-res read in plane space (``ops/raisr.py:_read_phases``):
+    out[..., p, i, j] = the source value at full-res
+    (s*(i - dst_org[0]) + a + dr, s*(j - dst_org[1]) + b + dc), p = a*s + b."""
+    so_r, so_c = src_org
+    do_r, do_c = dst_org
+    outs = []
+    for p in range(s * s):
+        a, b = divmod(p, s)
+        a2, ro = (a + dr) % s, (a + dr) // s
+        b2, co = (b + dc) % s, (b + dc) // s
+        r0 = so_r - do_r + ro
+        c0 = so_c - do_c + co
+        if r0 < 0 or c0 < 0:
+            raise ValueError(f"plane read before the origin: {(r0, c0, dr, dc)}")
+        outs.append(planes[..., a2 * s + b2, r0 : r0 + rows, c0 : c0 + cols])
+    return torch.stack(outs, dim=-3)
+
+
+def _eigen_bucket(a, b, d, cfg):
+    """Structure tensor (a, b; b, d) -> (angle, strength, coherence) indices
+    (``ops/raisr.py:_eigen_bucket``). Divisions by pi go through a device
+    tensor: a Python-scalar divisor on CUDA becomes a reciprocal multiply."""
+    pi = torch.tensor(math.pi, dtype=torch.float32, device=a.device)
+    t = a + d
+    det = a * d - b * b
+    disc = torch.sqrt(torch.clamp(t * t / 4.0 - det, min=0.0))
+    l1 = t / 2.0 + disc
+    l2 = t / 2.0 - disc
+
+    theta = torch.atan2(b, l1 - d)
+    theta = torch.where(theta < 0, theta + pi, theta)
+
+    sq1 = torch.sqrt(torch.clamp(l1, min=0.0))
+    sq2 = torch.sqrt(torch.clamp(l2, min=0.0))
+    denom = sq1 + sq2
+    safe = torch.where(denom == 0, torch.ones_like(denom), denom)
+    coherence = torch.where(denom != 0, (sq1 - sq2) / safe, torch.zeros_like(denom))
+
+    angle_idx = torch.clamp(
+        (theta / pi * cfg.num_angle).to(torch.int32), 0, cfg.num_angle - 1
+    )
+    strength_idx = sum((l1 >= q).to(torch.int32) for q in cfg.strength_quantizers)
+    coherence_idx = sum(
+        (coherence >= q).to(torch.int32) for q in cfg.coherence_quantizers
+    )
+    return angle_idx, strength_idx, coherence_idx
+
+
+def hash_planes(y_planes: torch.Tensor, cfg, hp: int, h2p: int, w2p: int) -> torch.Tensor:
+    """Plain version: luma planes [..., s*s, >= h2p + 2hp, >= w2p + 2hp]
+    (origin (hp, hp)) -> bucket planes [..., s*s, h2p, w2p] int32 < 216.
+    Sobel gradients, 9x9 separable structure-tensor blur, eigen analysis."""
+    from oclcomputervision_tpu_torch.ops.raisr import _blur_k1
+
+    s = cfg.scale
+    g = cfg.gauss_len // 2
+    bh = -(-g // s)  # plane halo of the blur stage
+
+    def stencil3(kern):
+        out = None
+        for u in range(3):
+            for v in range(3):
+                cc = float(kern[u, v])
+                if cc == 0.0:
+                    continue
+                term = cc * _read_phases(
+                    y_planes, (hp, hp), u - 1, v - 1, (bh, bh),
+                    h2p + 2 * bh, w2p + 2 * bh, s,
+                )
+                out = term if out is None else out + term
+        return out
+
+    gx = stencil3(SOBEL_X)
+    gy = stencil3(SOBEL_Y)
+    k1 = _blur_k1(cfg)
+    t3 = torch.stack([gx * gx, gx * gy, gy * gy])
+
+    vpass = None
+    for u in range(cfg.gauss_len):
+        term = float(k1[u]) * _read_phases(
+            t3, (bh, bh), u - g, 0, (0, bh), h2p, w2p + 2 * bh, s
+        )
+        vpass = term if vpass is None else vpass + term
+    hpass = None
+    for u in range(cfg.gauss_len):
+        term = float(k1[u]) * _read_phases(vpass, (0, bh), 0, u - g, (0, 0), h2p, w2p, s)
+        hpass = term if hpass is None else hpass + term
+
+    ai, si, ci = _eigen_bucket(hpass[0], hpass[1], hpass[2], cfg)
+    return ((ai * cfg.num_strength + si) * cfg.num_coherence + ci).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def _hash_consts(cfg, device):
+    """Blur taps and quantizers as f32 device arrays for the kernel."""
+    from oclcomputervision_tpu_torch.ops.raisr import _blur_k1
+
+    k1 = torch.from_numpy(np.asarray(_blur_k1(cfg), np.float32)).to(device)
+    sq = torch.tensor(cfg.strength_quantizers, dtype=torch.float32, device=device)
+    cq = torch.tensor(cfg.coherence_quantizers, dtype=torch.float32, device=device)
+    return k1, sq, cq
+
+
+def hash_planes_kernel(
+    y_planes: torch.Tensor, cfg, hp: int, h2p: int, w2p: int
+) -> torch.Tensor:
+    """Wrapper: the plain version for a CPU tensor, the CUDA kernel for a
+    CUDA tensor (contiguous [B, s*s, rows, wq] f32)."""
+    if y_planes.device.type == "cpu":
+        return hash_planes(y_planes, cfg, hp, h2p, w2p)
+    require_cuda_tensor(y_planes, "y_planes", torch.float32, 4)
+    s = cfg.scale
+    g = cfg.gauss_len // 2
+    nimg, ss, rows, wq = y_planes.shape
+    if ss != s * s or rows < h2p + 2 * hp or wq < w2p + 2 * hp:
+        raise ValueError(f"planes {tuple(y_planes.shape)} do not cover the plane "
+                         f"geometry h2p={h2p}, w2p={w2p}, hp={hp} at scale {s}")
+    if hp < -(-g // s) + 1 or nimg > 65535:
+        raise ValueError(f"halo {hp} below the hash reach, or {nimg} images")
+    k1, sq, cq = _hash_consts(cfg, y_planes.device)
+    out = torch.empty((nimg, ss, h2p, w2p), dtype=torch.int32, device=y_planes.device)
+    launch(
+        "raisr_hash", "ocvk_raisr_hash", y_planes.device,
+        y_planes.data_ptr(), out.data_ptr(), k1.data_ptr(), sq.data_ptr(),
+        cq.data_ptr(), nimg, s, hp, rows, wq, h2p, w2p, cfg.gauss_len,
+        cfg.num_angle, cfg.num_strength, cfg.num_coherence, sq.numel(), cq.numel(),
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Apply.
+# ---------------------------------------------------------------------------
+
+
+def phase_rows(filters: torch.Tensor, cfg) -> torch.Tensor:
+    """The bank as per-phase bf16 filter rows [s*s, buckets, fl*fl]: row
+    [t, k] is filter ``k * s*s + t`` (the live block of
+    ``raisr_pallas._phase_wmats``)."""
+    fl = cfg.filter_len
+    wall = filters.reshape(_num_buckets(cfg), cfg.num_pixel_type, fl * fl)
+    return wall.permute(1, 0, 2).to(torch.bfloat16)
+
+
+def apply_filters_planes(
+    planes: torch.Tensor, bucket_planes: torch.Tensor, filters: torch.Tensor, cfg
+) -> torch.Tensor:
+    """Plain version: planes [nc*B, s*s, >= h2p + 2hp, >= w2p + 2hp] f32,
+    bucket planes [B, s*s, h2p, w2p] int32, bank [num_filters, fl, fl] ->
+    filtered planes [nc*B, s*s, h2p, w2p] f32. Image c*B + b reads bucket
+    map b. A bucket outside [0, buckets) selects no filter and gives 0, as
+    the TPU kernel's one-hot select does."""
+    from oclcomputervision_tpu_torch.ops.raisr import _tap_tables, plane_halo
+
+    s = cfg.scale
+    fl = cfg.filter_len
+    hp = plane_halo(fl, s, cfg.gauss_len)
+    nimg = planes.shape[0]
+    nb, ss, h2p, w2p = bucket_planes.shape
+    if nimg % nb:
+        raise ValueError(f"{nimg} plane images do not stack over {nb} bucket maps")
+    nbk = _num_buckets(cfg)
+    rows = phase_rows(filters, cfg).float()  # bf16-rounded, as f32
+    taps = planes.to(torch.bfloat16).float()
+    bk = bucket_planes.long().repeat(nimg // nb, 1, 1, 1)
+    valid = (bk >= 0) & (bk < nbk)
+    bk = torch.clamp(bk, 0, nbk - 1)
+    out = torch.empty((nimg, ss, h2p, w2p), dtype=torch.float32, device=planes.device)
+    for t in range(ss):
+        py, px = divmod(t, s)
+        tap_plane, tap_off = _tap_tables(fl, s, py, px, hp)
+        bt = bk[:, t]
+        acc = torch.zeros((nimg, h2p, w2p), dtype=torch.float32, device=planes.device)
+        for q, (p, (ro, co)) in enumerate(zip(tap_plane, tap_off)):
+            coef = rows[t, :, q][bt]
+            acc = acc + coef * taps[:, p, ro : ro + h2p, co : co + w2p]
+        out[:, t] = torch.where(valid[:, t], acc, torch.zeros_like(acc))
+    return out
+
+
+def _bank_rows(filters: torch.Tensor, cfg) -> tuple[torch.Tensor, int]:
+    """Per-phase bf16 rows, each padded to a multiple of 8 taps (16 bytes)."""
+    rows = phase_rows(filters, cfg)
+    ntap = rows.shape[-1]
+    stride = -(-ntap // 8) * 8
+    bank = torch.zeros(rows.shape[:2] + (stride,), dtype=torch.bfloat16, device=rows.device)
+    bank[..., :ntap] = rows
+    return bank, stride
+
+
+def apply_filters_planes_kernel(
+    planes: torch.Tensor, bucket_planes: torch.Tensor, filters: torch.Tensor, cfg
+) -> torch.Tensor:
+    """Wrapper: the plain version for CPU tensors, the CUDA kernel (one
+    launch for every image and phase) for CUDA tensors."""
+    from oclcomputervision_tpu_torch.ops.raisr import plane_halo
+
+    if planes.device.type == "cpu":
+        return apply_filters_planes(planes, bucket_planes, filters, cfg)
+    require_cuda_tensor(planes, "planes", torch.float32, 4)
+    require_cuda_tensor(bucket_planes, "bucket_planes", torch.int32, 4)
+    s = cfg.scale
+    fl = cfg.filter_len
+    hp = plane_halo(fl, s, cfg.gauss_len)
+    nimg, ss, rows, wq = planes.shape
+    nb, ssb, h2p, w2p = bucket_planes.shape
+    if bucket_planes.device != planes.device or filters.device != planes.device:
+        raise ValueError("planes, bucket_planes and filters must share a device")
+    if filters.dtype != torch.float32 or filters.numel() != cfg.num_filters * fl * fl:
+        raise ValueError(f"filters must be f32 [{cfg.num_filters}, {fl}, {fl}]")
+    if ss != s * s or ssb != ss or nimg % nb or nimg > 65535:
+        raise ValueError(f"planes {tuple(planes.shape)} and buckets "
+                         f"{tuple(bucket_planes.shape)} do not match at scale {s}")
+    if rows < h2p + 2 * hp or wq < w2p + 2 * hp:
+        raise ValueError(f"planes {tuple(planes.shape)} lack the {hp}-plane halo")
+    if fl != 11 or s not in (2, 3, 4):
+        raise ValueError(
+            f"the CUDA apply kernel is compiled for filter_len 11 at scales 2-4, "
+            f"got filter_len {fl} at scale {s}"
+        )
+    bank, stride = _bank_rows(filters, cfg)
+    out = torch.empty((nimg, ss, h2p, w2p), dtype=torch.float32, device=planes.device)
+    launch(
+        "raisr_apply", "ocvk_raisr_apply", planes.device,
+        planes.data_ptr(), bucket_planes.data_ptr(), bank.data_ptr(), out.data_ptr(),
+        nimg, nb, s, fl, hp, rows, wq, h2p, w2p, _num_buckets(cfg), stride,
+    )
+    return out

@@ -1,0 +1,17 @@
+"""Image IO, timing, and the JAX package's JAX-free asset and metric helpers."""
+
+from oclcomputervision_tpu.utils.assets import asset_path
+from oclcomputervision_tpu.utils.metrics import psnr
+from oclcomputervision_tpu_torch.utils.png import gray, load_gray, load_image, read_png
+from oclcomputervision_tpu_torch.utils.profiling import cuda_time_ms, device_profile
+
+__all__ = [
+    "asset_path",
+    "cuda_time_ms",
+    "device_profile",
+    "gray",
+    "load_gray",
+    "load_image",
+    "psnr",
+    "read_png",
+]
