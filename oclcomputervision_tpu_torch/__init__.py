@@ -8,12 +8,17 @@ Layers (counterparts of the JAX package's modules of the same names):
 
 - ``kernels``: hand-written CUDA C++ kernels for Hopper (``kernels/csrc``),
   built with nvcc and bound with ctypes, each beside its plain PyTorch version.
-- ``ops``: plain PyTorch pipelines around the kernels (RAISR inference).
+- ``ops``: plain PyTorch pipelines around the kernels (RAISR inference,
+  global and local-block histogram equalization).
 - ``models``: ``RaisrModel``, the filter bank as an ``nn.Module``.
-- ``utils``: a stdlib PNG reader and CUDA-event timing.
+- ``utils``: configs, asset paths, PSNR, a stdlib PNG reader and CUDA-event
+  timing.
+- ``oracle``: the numpy oracles (histeq, interpolation, RAISR).
 
-Every entry point takes an explicit device; nothing picks the CPU by itself.
-This package imports no JAX. It reuses the JAX package's JAX-free modules
+Entry points run on the card unless the caller passes ``device="cpu"``; a
+torch tensor input runs on its own device. Nothing picks the CPU by itself.
+This package imports neither JAX nor the JAX package: it keeps its own
+copies of the configs, asset paths, PSNR and numpy oracles it needs
 (``utils.config``, ``utils.assets``, ``utils.metrics``, ``oracle``).
 """
 

@@ -1,4 +1,5 @@
-"""Device checks: the port never falls back to the CPU on its own."""
+"""Device rules: the port runs on the card unless the caller asks for the
+CPU, and never falls back to the CPU on its own."""
 
 from __future__ import annotations
 
@@ -15,10 +16,11 @@ def require_cuda() -> torch.device:
     return torch.device("cuda", 0)
 
 
-def as_device(device) -> torch.device:
-    """Validate an explicit device argument ('cuda', 'cuda:0' or 'cpu')."""
+def as_device(device=None) -> torch.device:
+    """The device to run on: None means the card (``require_cuda``);
+    'cuda', 'cuda:0' or 'cpu' are taken as given. Only 'cpu' gives the CPU."""
     if device is None:
-        raise ValueError("pass a device explicitly, for example 'cuda' or 'cpu'")
+        return require_cuda()
     dev = torch.device(device)
     if dev.type == "cuda":
         require_cuda()

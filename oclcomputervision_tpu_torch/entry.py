@@ -1,7 +1,8 @@
-"""Entry point: the flagship RAISR x2 inference step on a given device.
+"""Entry point: the flagship RAISR x2 inference step, on the card by default.
 
 Counterpart of ``__graft_entry__.entry()``: the same 64x64 uint8 image and
-the same seeded filter bank (identity plus 0.01 noise), on ``device``.
+the same seeded filter bank (identity plus 0.01 noise), on ``device`` (None:
+the card; ``"cpu"`` runs the plain versions).
 """
 
 from __future__ import annotations
@@ -9,12 +10,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from oclcomputervision_tpu.utils.config import RaisrConfig
 from oclcomputervision_tpu_torch._device import as_device
 from oclcomputervision_tpu_torch.ops.raisr import raisr_upsample
+from oclcomputervision_tpu_torch.utils.config import RaisrConfig
 
 
-def entry(device):
+def entry(device=None):
     """Returns (fn, (image, filter_bank)); ``fn(*args)`` upsamples x2."""
     dev = as_device(device)
     cfg = RaisrConfig(fidelity="full")

@@ -42,7 +42,15 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
 )
 
-LAUNCHES = {"upscale_planes": 0, "raisr_hash": 0, "raisr_apply": 0}
+LAUNCHES = {
+    "upscale_planes": 0,
+    "raisr_hash": 0,
+    "raisr_apply": 0,
+    "hist256": 0,
+    "apply_lut": 0,
+    "hist_tiles": 0,
+    "blend_blocks": 0,
+}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,6 +65,14 @@ _SIGNATURES = {
     # planes, buckets, bank, out, nimg, nb, s, fl, hp, rows, wq, h2p,
     # w2p, nbucket, row_stride, stream
     "ocvk_raisr_apply": [_VP] * 4 + [_I] * 11 + [_VP],
+    # x, out, nimg, n, stream
+    "ocvk_hist256": [_VP] * 2 + [_I] * 2 + [_VP],
+    # x, luts, out, nimg, n, stream
+    "ocvk_apply_lut": [_VP] * 3 + [_I] * 2 + [_VP],
+    # x, out, nimg, h, w, th, tw, rows_per_block, stream
+    "ocvk_hist_tiles": [_VP] * 2 + [_I] * 6 + [_VP],
+    # x, m, out, nimg, h, w, nby, nbx, bh, bw, rows_per_block, stream
+    "ocvk_blend_blocks": [_VP] * 3 + [_I] * 8 + [_VP],
 }
 
 _lib: ctypes.CDLL | None = None

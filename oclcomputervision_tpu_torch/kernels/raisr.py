@@ -25,8 +25,8 @@ import math
 import numpy as np
 import torch
 
-from oclcomputervision_tpu.oracle.raisr import SOBEL_X, SOBEL_Y
 from oclcomputervision_tpu_torch.kernels._build import launch, require_cuda_tensor
+from oclcomputervision_tpu_torch.oracle.raisr import SOBEL_X, SOBEL_Y
 
 
 def _num_buckets(cfg) -> int:

@@ -11,8 +11,8 @@ Plane convention (shared with the kernels and with the JAX package):
 ``planes[a*s + b][hp + i, hp + j] = up_e(s*i + a, s*j + b)``, where up_e is
 the edge-replicated align-corners upscale at global coordinates.
 
-The table functions below are numpy copies of the JAX package's (they live
-in modules that import JAX); tests hold them equal.
+The table functions below are numpy copies of the JAX package's; tests
+hold them equal.
 """
 
 from __future__ import annotations
@@ -23,11 +23,11 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from oclcomputervision_tpu.oracle import raisr as oracle_raisr
-from oclcomputervision_tpu.oracle.interpolation import axis_weights
-from oclcomputervision_tpu.utils.config import RaisrConfig
 from oclcomputervision_tpu_torch.kernels import raisr as kraisr
 from oclcomputervision_tpu_torch.kernels import upscale as kupscale
+from oclcomputervision_tpu_torch.oracle import raisr as oracle_raisr
+from oclcomputervision_tpu_torch.oracle.interpolation import axis_weights
+from oclcomputervision_tpu_torch.utils.config import RaisrConfig
 
 TILE_H = 64  # plane rows are padded to a multiple of this
 LANE = 128  # plane columns are padded to a multiple of this

@@ -1,0 +1,3 @@
+"""NumPy oracles the port is held to: copies of the JAX package's
+``oracle.histeq``, ``oracle.interpolation`` and ``oracle.raisr``, kept equal
+to them by ``tests/test_torch_port_imports.py``."""

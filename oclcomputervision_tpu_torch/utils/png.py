@@ -12,7 +12,7 @@ import zlib
 
 import numpy as np
 
-from oclcomputervision_tpu.utils.assets import asset_path
+from oclcomputervision_tpu_torch.utils.assets import asset_path
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 

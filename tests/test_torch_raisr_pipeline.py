@@ -59,7 +59,10 @@ def test_slice_matches_jax_pipeline(color, lenna_gray, lenna_rgb, jax_x2, port_x
 
 def test_bank_carried_across_from_jax(jax_x2, port_x2):
     loaded = RaisrModel.load(asset_path("raisr_filters_x2.npz"), device="cpu")
-    assert loaded.cfg == port_x2.cfg == jax_x2.cfg
+    # the JAX config crossed by its fields into the port's own class
+    assert loaded.cfg == port_x2.cfg
+    assert type(port_x2.cfg) is not type(jax_x2.cfg)
+    assert dataclasses.asdict(port_x2.cfg) == dataclasses.asdict(jax_x2.cfg)
     assert loaded.filters.dtype == torch.float32
     np.testing.assert_array_equal(loaded.filters.numpy(), port_x2.filters.numpy())
     np.testing.assert_array_equal(loaded.filters.numpy(), np.asarray(jax_x2.filters))
@@ -122,5 +125,8 @@ def test_entry_and_unported_paths(port_x2):
         raisr_upsample(args[0], port_x2.filters, shipped)
     with pytest.raises(TypeError):
         raisr_upsample(args[0].numpy(), port_x2.filters, cfg)
-    with pytest.raises(ValueError):
-        entry(None)
+    # no card here: the default device (the card) raises, never the CPU
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        entry()
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        RaisrModel.load(asset_path("raisr_filters_x2.npz"))

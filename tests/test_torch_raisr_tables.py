@@ -1,5 +1,5 @@
 """PyTorch port: the RAISR tables, the PNG reader, the device rules and the
-JAX-free import of the port, all on the CPU."""
+import of the port with JAX and the JAX package blocked, all on the CPU."""
 
 import os
 import subprocess
@@ -134,11 +134,19 @@ def test_wrappers_reject_tensors_on_other_devices():
 
 def test_kernel_build_inputs():
     names = sorted(os.path.basename(p) for p in _build._sources())
-    assert names == ["errors.cu", "raisr_apply.cu", "raisr_hash.cu", "upscale_planes.cu"]
+    assert names == [
+        "apply_lut.cu", "blend_blocks.cu", "errors.cu", "hist256.cu", "hist_common.cuh",
+        "hist_tiles.cu", "raisr_apply.cu", "raisr_hash.cu", "upscale_planes.cu",
+    ]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     # every wrapper's C entry point has declared argument types
     assert set(_build._SIGNATURES) == {
-        "ocvk_upscale_planes", "ocvk_raisr_hash", "ocvk_raisr_apply"
+        "ocvk_upscale_planes", "ocvk_raisr_hash", "ocvk_raisr_apply",
+        "ocvk_hist256", "ocvk_apply_lut", "ocvk_hist_tiles", "ocvk_blend_blocks",
+    }
+    assert set(_build.LAUNCHES) == {
+        "upscale_planes", "raisr_hash", "raisr_apply",
+        "hist256", "apply_lut", "hist_tiles", "blend_blocks",
     }
 
 
@@ -147,8 +155,8 @@ import importlib, importlib.abc, pkgutil, sys
 
 class BlockJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is blocked: " + name)
+        if name.split(".")[0] in ("jax", "jaxlib", "oclcomputervision_tpu"):
+            raise ImportError("blocked: " + name)
 
 sys.meta_path.insert(0, BlockJax())
 import numpy as np
@@ -157,13 +165,18 @@ import oclcomputervision_tpu_torch as pkg
 
 for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(mod.name)
-from oclcomputervision_tpu.utils.config import RaisrConfig
+from oclcomputervision_tpu_torch.ops import histeq_global, histeq_local_block
 from oclcomputervision_tpu_torch.ops.raisr import raisr_upsample
+from oclcomputervision_tpu_torch.utils.config import RaisrConfig
 
 img = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (24, 40), dtype=np.uint8))
 out = raisr_upsample(img, None, RaisrConfig())
 assert out.shape == (48, 80) and out.dtype == torch.uint8
-assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+assert histeq_global(img).shape == (24, 40)
+assert histeq_local_block(img, blockshape=(12, 20)).shape == (24, 40)
+assert not any(
+    m.split(".")[0] in ("jax", "jaxlib", "oclcomputervision_tpu") for m in sys.modules
+)
 print("NO_JAX_OK")
 """
 
