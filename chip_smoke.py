@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU: RAISR x2
-inference, and global and local-block histogram equalization.
+inference, global and local-block histogram equalization, and pyramidal
+block-matching motion estimation.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -17,6 +18,12 @@ failure raises, and the script exits non-zero without the result line):
    bench.py's geometries (hist256 and apply_lut on 256x768x1280, hist_tiles
    and blend_blocks on 64x768x1280 at 256x256 blocks), on a 3x101x77 batch
    and on a row that starts one byte past a 16-byte boundary;
+3c. each motion-estimation kernel against its plain version, which it must
+   equal: the exact search unseeded (SAD and SSD; 2 noisy VGA pairs, a
+   3x101x77 batch, the 9/3 and 11/5 geometries) and seeded (seeds in +-6,
+   +-29 and one that saturates the bound 32, whose RuntimeWarning is
+   expected; both seed modes; no clamp), the fast iteration unseeded and
+   seeded (residual and per-round gather forms);
 4. RAISR end to end through ``RaisrModel.load(...).upsample``: a
    16x1024x1024 uint8 batch (each RAISR kernel's launch count must rise
    during it) and one RGB image (lenna 512^2 -> 1024^2, held against the
@@ -27,8 +34,19 @@ failure raises, and the script exits non-zero without the result line):
    a 3x5 LUT grid (blocks that do not divide the image); each path's
    kernels' launch counts must rise during it, its output must equal the
    plain path's, and one natural image is held against the numpy oracle;
+4c. motion estimation end to end through ``ops.estimate_motion_pyramid`` on
+   the Middlebury pair (frame10/frame11, 480x640), 3 levels, smooth 9: the
+   exact and the hybrid (fast + seeded exact) schedules, both again with 12
+   subpixel rounds, and both on a batch of 4 noisy pairs; each path's
+   kernels' launch counts must rise during it, its flows must equal the plain
+   path's, the pyramid levels must be within one level of the numpy oracle's
+   and the coarsest level's exact search must equal the numpy oracle's;
 5. quality on held-out frame11: RAISR PSNR above bilinear, and above 35 dB
    against the numpy oracle;
+5c. motion quality: end-point error of the four schedules' finest level
+   against flow10.flo, each within 0.02 px of the JAX package's value on the
+   decode that value was taken on (libpng's truncated luma), and printed for
+   the port's rounded luma;
 6. RAISR timing with CUDA events (median of 5 after 2 warm-ups): output
    MP/s of the 16x1024^2 batch through the kernels and through the plain
    versions, a torch.profiler breakdown of the kernel path (device ms per
@@ -39,7 +57,13 @@ failure raises, and the script exits non-zero without the result line):
 6b. histeq timing, the same way: input MP/s of both ops through the
    kernels and the plain versions, their profiles, and each kernel's,
    plain version's and single PyTorch call's time at the bench shapes
-   (each such call first checked equal to its kernel).
+   (each such call first checked equal to its kernel);
+6c. motion timing: input MP/s of ``estimate_motion_vector`` exact on 8 VGA
+   pairs and fast on 16, finest-level MP/s of the batched exact pyramid on
+   4 pairs, wall ms of the single-pair exact and hybrid pyramids, each
+   through the kernels and the plain versions, the pyramids' profiles, the
+   time of ``median_filter_flow`` and ``upscale_mv``, and each kernel's own
+   time at the 4-pair finest level beside its bound.
 
 Prints the per-kernel JSON line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -73,6 +97,22 @@ BLOCK = (256, 256)
 # apply_block_mappings with the 3x5 LUT grid of a 768x1280 image on a larger
 # image the blocks do not divide (the grid covers up to 896x1408)
 MAPPED_SHAPE = (2, 880, 1400)
+ME_GEOMETRY = (15, 5)  # search and patch size: steps 5, 2, 1 (me_pyramid.py:130)
+ME_LEVELS, ME_SMOOTH, ME_SUBPIXEL = 3, 9, 12
+# bench.py's batches of noisy Middlebury pairs: the exact search, the fast
+# mode, the batched exact pyramid
+ME_EXACT_BATCH, ME_FAST_BATCH, ME_PYRAMID_BATCH = 8, 16, 4
+# finest-level end-point error on flow10.flo of the JAX package's four
+# schedules (BENCH_r05.json), which the port must reproduce
+EPE_TARGETS = {"exact": 3.441, "hybrid": 3.165, "exact+subpixel": 2.457,
+               "hybrid+subpixel": 2.308}
+EPE_TOL = 0.02
+ME_SCHEDULES = {
+    "exact": {"method": "exact"},
+    "hybrid": {"method": "fast"},
+    "exact+subpixel": {"method": "exact", "subpixel": ME_SUBPIXEL},
+    "hybrid+subpixel": {"method": "fast", "subpixel": ME_SUBPIXEL},
+}
 HISTEQ_ORACLE_SHARE = 0.01  # global vs oracle: <= 1 level on < 1 % (tests/test_histeq.py:65-72)
 
 # bounds: the card's published rates (NVIDIA H100 SXM data sheet, 700 W)
@@ -87,10 +127,16 @@ OPS_PER_ELEM = {
     "apply_lut": 0,  # a table load per pixel
     "hist_tiles": 1,
     "blend_blocks": 17,  # 2 ramps, 2 complements, 8 products, 3 sums, 2 clamps
+    # at 15/5: 9 + 8 + 8 candidates (the centre's cost carries over between
+    # rounds) of 25 taps, each a subtract, an absolute value and an add
+    "me_exact": 25 * 25 * 3,
+    "me_fast_round": 9 * 25 * 3,  # per launch: 9 candidates of 25 taps
+    "me_fast_median": 2 * 19 * 2,  # per launch: 2 planes, 19 exchanges of a min and a max
 }
 RAISR_KERNELS = ("upscale_planes", "raisr_hash", "raisr_apply")
 GLOBAL_KERNELS = ("hist256", "apply_lut")
 LOCAL_KERNELS = ("hist_tiles", "blend_blocks")
+ME_KERNELS = ("me_exact", "me_fast_round", "me_fast_median")
 
 KERNELS = {
     # name -> (source, replaced TPU kernel: file:line of its pl.pallas_call)
@@ -122,6 +168,20 @@ KERNELS = {
         "oclcomputervision_tpu_torch/kernels/csrc/blend_blocks.cu",
         "oclcomputervision_tpu/ops/pallas/localeq_pallas.py:187 and "
         "oclcomputervision_tpu/ops/pallas/localeq_pallas.py:288",
+    ),
+    "me_exact": (
+        "oclcomputervision_tpu_torch/kernels/csrc/me_exact.cu",
+        "oclcomputervision_tpu/ops/pallas/me_pallas.py:251 and "
+        "oclcomputervision_tpu/ops/pallas/me_pallas.py:781",
+    ),
+    # the fast iteration's TPU kernel is two CUDA kernels, one launch of each per round
+    "me_fast_round": (
+        "oclcomputervision_tpu_torch/kernels/csrc/me_fast_round.cu",
+        "oclcomputervision_tpu/ops/pallas/me_fast_pallas.py:301",
+    ),
+    "me_fast_median": (
+        "oclcomputervision_tpu_torch/kernels/csrc/me_fast_median.cu",
+        "oclcomputervision_tpu/ops/pallas/me_fast_pallas.py:301",
     ),
 }
 
@@ -647,6 +707,341 @@ def histeq_timing(batches, card, device):
     return times, e2e
 
 
+def noisy_pairs(rng, n: int):
+    """bench.py's motion input: the Middlebury pair, per pair additive noise
+    in [-4, 4] on both frames. Two uint8 [n, 480, 640] arrays."""
+    import numpy as np
+
+    from oclcomputervision_tpu_torch.utils import load_gray
+
+    def noisy(g):
+        return np.clip(g.astype(np.int16)[None] + rng.integers(-4, 5, (n, *g.shape)),
+                       0, 255).astype(np.uint8)
+
+    return noisy(load_gray("frame10.png")), noisy(load_gray("frame11.png"))
+
+
+def me_kernel_vs_plain(rng, device):
+    """Phase 3c: each motion kernel and its plain version on the same inputs;
+    the searches are integer, so they must be equal."""
+    import warnings
+
+    import torch
+
+    from oclcomputervision_tpu_torch.kernels import motion as km
+    from oclcomputervision_tpu_torch.ops import motion as om
+
+    errs = {k: 0.0 for k in ME_KERNELS}
+
+    def check(names, tag, got, want):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{names} {tag}: {tuple(got.shape)} {got.dtype} vs "
+                                 f"{tuple(want.shape)} {want.dtype}")
+        err = (got.double() - want.double()).abs().max().item()
+        for name in names:
+            errs[name] = max(errs[name], err)
+        print(f"{'+'.join(names)} {tag} {tuple(got.shape)}: max|kernel - plain| = {err}")
+
+    def seed_of(shape, amp):
+        return torch.from_numpy(
+            rng.uniform(-amp, amp, (*shape, 2)).astype("float32")).to(device)
+
+    n0, n1 = noisy_pairs(rng, 2)
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 31)))
+    odd = torch.randint(0, 256, (2, 3, 101, 77), generator=gen, device=device,
+                        dtype=torch.uint8)
+    inputs = {"vga": (torch.from_numpy(n0).to(device), torch.from_numpy(n1).to(device)),
+              "odd": (odd[0], odd[1])}
+    fast = ("me_fast_round", "me_fast_median")
+    for tag, (f0, f1) in inputs.items():
+        # 9/3 takes the kernel's path for any patch size, 11/5 two rounds
+        for search, patch in (ME_GEOMETRY,) if tag == "vga" else (ME_GEOMETRY, (9, 3), (11, 5)):
+            geo = f"{tag} {search}/{patch}"
+            for costfn in ("sad", "ssd"):
+                check(("me_exact",), f"{geo} {costfn} unseeded",
+                      km.me_exact_kernel(f0, f1, search, patch, costfn),
+                      km.me_exact(f0, f1, search, patch, costfn))
+                check(fast, f"{geo} {costfn} unseeded",
+                      km.me_fast_kernel(f0, f1, search, patch, costfn),
+                      km.me_fast(f0, f1, search, patch, costfn))
+            for amp, bound in ((6, 8), (29, 32), (40, None)):
+                sd = seed_of(f0.shape, amp)
+                for mode in ("shipped", "fixed"):
+                    check(("me_exact",), f"{geo} seed +-{amp} bound {bound} {mode}",
+                          km.me_exact_kernel(f0, f1, search, patch, "sad", sd, bound, mode),
+                          km.me_exact(f0, f1, search, patch, "sad", sd, bound, mode))
+                # fast mode around the seed: residual form, clamped base, per-round gather
+                for wb in (-1, 16, None):
+                    got, want = (om._fast(f0, f1, sd, search, patch, "fixed", wb, "sad", st)
+                                 for st in (om.KERNEL_STAGES, om.PLAIN_STAGES))
+                    check(fast, f"{geo} seed +-{amp} warp_bound {wb}", got, want)
+            # a seed beyond the bound saturates there, with a warning
+            sd = seed_of(f0.shape, 40)
+            for mode in ("shipped", "fixed"):
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    got, want = (
+                        om._estimate(f0, f1, sd, search, patch, mode, "exact", "sad", "auto",
+                                     32, st)
+                        for st in (om.KERNEL_STAGES, om.PLAIN_STAGES))
+                if not any(issubclass(c.category, RuntimeWarning) and "saturates" in
+                           str(c.message) for c in caught):
+                    raise AssertionError("a seed beyond the bound raised no RuntimeWarning")
+                check(("me_exact",), f"{geo} seed +-40 saturating bound 32 {mode}", got, want)
+                if got.abs().max().item() > (40 if mode == "shipped" else 0) + 32 + sum(
+                        om.me_steps(search, patch)):
+                    raise AssertionError("the saturating seed's base was not clamped")
+    bad = {k: v for k, v in errs.items() if v != 0.0}
+    if bad:
+        raise AssertionError(f"motion kernels differ from their plain versions: {bad}")
+    return {k: {"max_abs_err": v} for k, v in errs.items()}
+
+
+def me_main_path(rng, device):
+    """Phases 4c and 5c: the motion pyramids end to end, each path with the
+    launch counts set to 0 just before it and read just after; flows against
+    the plain path, the numpy oracles and the ground-truth flow."""
+    import numpy as np
+    import torch
+
+    from oclcomputervision_tpu_torch import ops
+    from oclcomputervision_tpu_torch.kernels import _build
+    from oclcomputervision_tpu_torch.ops import motion as om
+    from oclcomputervision_tpu_torch.oracle import motion as oracle_motion
+    from oclcomputervision_tpu_torch.oracle import pyramid as oracle_pyramid
+    from oclcomputervision_tpu_torch.utils import asset_path, epe, load_gray, read_flo
+
+    search, patch = ME_GEOMETRY
+    g0, g1 = load_gray("frame10.png"), load_gray("frame11.png")
+    gt = read_flo(asset_path("flow10.flo"))
+    sizes = [(g0.shape[0] >> k, g0.shape[1] >> k) for k in range(ME_LEVELS - 1, -1, -1)]
+
+    def drive(tag, kernels, a0, a1, **kw):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        flows = ops.estimate_motion_pyramid(a0, a1, ME_LEVELS, search, patch,
+                                            smooth=ME_SMOOTH, **kw)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        print(f"pyramid {tag}: {a0.shape} uint8 x2 -> "
+              f"{[tuple(f.shape) for f in flows]} {flows[-1].dtype}, "
+              f"launches { {k: launches[k] for k in ME_KERNELS} }")
+        missing = [k for k in kernels if launches[k] < 1]
+        if missing:
+            raise AssertionError(f"pyramid {tag} launched no {missing} kernel")
+        lead = a0.shape[:-2]
+        for f, (h, w) in zip(flows, sizes):
+            if tuple(f.shape) != (*lead, h, w, 2) or f.dtype != torch.float32 \
+                    or f.device != device or not torch.isfinite(f).all():
+                raise AssertionError(f"pyramid {tag}: bad level {tuple(f.shape)} {f.dtype}")
+        t0, t1 = (torch.from_numpy(a).to(device) for a in (a0, a1))
+        if t0.ndim == 2:
+            t0, t1 = t0[None], t1[None]
+        plain = om._pyramid(t0, t1, ME_LEVELS, search, patch, "fixed", kw["method"],
+                            ME_SMOOTH, "auto", "auto", kw.get("subpixel", 0), "auto",
+                            om.PLAIN_STAGES)
+        for lv, (f, p) in enumerate(zip(flows, plain)):
+            if not torch.equal(f.reshape(p.shape), p):
+                n = (f.reshape(p.shape) != p).any(-1).sum().item()
+                raise AssertionError(f"pyramid {tag} level {lv}: {n} vectors differ from "
+                                     f"the plain path")
+        print(f"pyramid {tag}: every level equal to the plain path")
+        return flows, launches
+
+    # the pyramid levels and the coarsest level's search against the numpy oracles
+    pyr0 = ops.gaussian_pyramid(g0, 2, ME_LEVELS)
+    pyr1 = ops.gaussian_pyramid(g1, 2, ME_LEVELS)
+    for lv, (got, want) in enumerate(zip(pyr0, oracle_pyramid.gaussian_pyramid(g0, 2, ME_LEVELS))):
+        d = np.abs(got.cpu().numpy().astype(int) - want.astype(int)).max()
+        print(f"gaussian_pyramid level {lv} {tuple(got.shape)} vs numpy oracle: max {d} (<= 1)")
+        if got.dtype != torch.uint8 or got.shape != want.shape or d > 1:
+            raise AssertionError(f"pyramid level {lv} disagrees with the oracle")
+    _build.reset_launches()
+    coarse = ops.estimate_motion_vector(pyr0[0], pyr1[0], search, patch)
+    want = oracle_motion.estimate_motion_vector(
+        pyr0[0].cpu().numpy(), pyr1[0].cpu().numpy(), search, patch)
+    same = np.array_equal(coarse.cpu().numpy(), want)
+    print(f"exact search on the coarsest level {tuple(coarse.shape)} vs numpy oracle: "
+          f"{'equal' if same else 'DIFFERENT'}, launches {_build.LAUNCHES['me_exact']}")
+    if not same or _build.LAUNCHES["me_exact"] != 1:
+        raise AssertionError("the coarsest level's exact search disagrees with the oracle")
+
+    # each schedule on both decodes of the frames: rounded BT.601 luma (the
+    # port's load_gray) and libpng's truncated luma, one level lower on half
+    # the pixels, which the JAX package's EPE values were taken on
+    l0, l1 = load_gray("frame10.png", libpng=True), load_gray("frame11.png", libpng=True)
+    print(f"libpng decode differs from the rounded one on {(l0 != g0).mean():.4f} of frame10, "
+          f"by at most {np.abs(l0.astype(int) - g0).max()}")
+    results, rounded, launches = {}, {}, {}
+    for name, kw in ME_SCHEDULES.items():
+        kernels = ME_KERNELS if kw["method"] == "fast" else ("me_exact",)
+        flows, launches[name] = drive(f"{name}, libpng luma", kernels, l0, l1, **kw)
+        results[name] = epe(flows[-1].cpu().numpy(), gt)
+        integer = bool((flows[-1] == flows[-1].round()).all())
+        if integer != ("subpixel" not in kw):
+            raise AssertionError(f"pyramid {name}: integer-valued flow is {integer}")
+        flows, _ = drive(f"{name}, rounded luma", kernels, g0, g1, **kw)
+        rounded[name] = epe(flows[-1].cpu().numpy(), gt)
+    bound = ops.exact_flow_bound(ME_LEVELS, search, patch)
+    b0, b1 = noisy_pairs(rng, ME_PYRAMID_BATCH)
+    for name in ("exact", "hybrid"):
+        kw = ME_SCHEDULES[name]
+        kernels = ME_KERNELS if kw["method"] == "fast" else ("me_exact",)
+        flows, launches[f"batched {name}"] = drive(f"batched {name}", kernels, b0, b1, **kw)
+        if name == "exact" and flows[-1].abs().max().item() > bound:
+            raise AssertionError(f"exact pyramid flow beyond exact_flow_bound = {bound}")
+
+    # phase 5c: quality
+    zero = epe(np.zeros_like(gt), gt)
+    print(f"EPE on flow10.flo, finest level (zero flow {zero:.4f}):")
+    for name, val in results.items():
+        print(f"    {name:16s} {val:.4f} px on libpng luma (the JAX package's "
+              f"{EPE_TARGETS[name]:.3f}, tol {EPE_TOL}); {rounded[name]:.4f} px on rounded luma")
+    off = {k: v for k, v in results.items() if not abs(v - EPE_TARGETS[k]) <= EPE_TOL}
+    if off or not all(v < zero for v in (*results.values(), *rounded.values())):
+        raise AssertionError(f"EPE off its target: {off} (zero flow {zero})")
+    # the hybrid schedule on the 4-pair batch launches all three kernels
+    results.update({f"{k}, rounded luma": v for k, v in rounded.items()})
+    return {k: launches["batched hybrid"][k] for k in ME_KERNELS}, results, (b0, b1)
+
+
+def wall_ms(fn, *args, warmup: int = 2, iters: int = 5) -> float:
+    """Median host milliseconds of ``fn(*args)`` ending in a synchronise."""
+    import statistics
+
+    import torch
+
+    for _ in range(warmup):
+        fn(*args)
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def me_timing(rng, pyramid_batch, card, device):
+    """Phase 6c: the searches' and pyramids' rates through the kernels and
+    the plain versions, the pyramids' profiles, and each kernel's own time
+    at the 4-pair finest level beside its bound."""
+    import torch
+
+    from oclcomputervision_tpu_torch import ops
+    from oclcomputervision_tpu_torch.kernels import motion as km
+    from oclcomputervision_tpu_torch.ops import motion as om
+    from oclcomputervision_tpu_torch.utils import cuda_time_ms, device_profile, load_gray
+
+    search, patch = ME_GEOMETRY
+    steps = om.me_steps(search, patch)
+
+    def on_card(*arrays):
+        return tuple(torch.from_numpy(a).to(device) for a in arrays)
+
+    def single(method, stages, t0, t1):
+        return om._estimate(t0, t1, None, search, patch, "shipped", method, "sad", "auto",
+                            "auto", stages)
+
+    def pyramid(method, stages, t0, t1):
+        return om._pyramid(t0, t1, ME_LEVELS, search, patch, "fixed", method, ME_SMOOTH,
+                           "auto", "auto", 0, "auto", stages)
+
+    e2e = {}
+    for name, method, n in (("me_exact", "exact", ME_EXACT_BATCH),
+                            ("me_fast", "fast", ME_FAST_BATCH)):
+        t0, t1 = on_card(*noisy_pairs(rng, n))
+        mp = t0.numel() / 1e6
+        ms_k = cuda_time_ms(ops.estimate_motion_vector, t0, t1, search, patch, None,
+                            "shipped", method)
+        ms_p = cuda_time_ms(single, method, om.PLAIN_STAGES, t0, t1)
+        print(f"[{card}] e2e estimate_motion_vector {method} {tuple(t0.shape)} uint8 x2 "
+              f"kernels: {ms_k:.4f} ms, {mp / ms_k * 1e3:.2f} MP in/s; plain: {ms_p:.4f} ms, "
+              f"{mp / ms_p * 1e3:.2f} MP in/s")
+        e2e[name] = {"ms": ms_k, "plain_ms": ms_p, "mp_in_per_s": mp / ms_k * 1e3,
+                     "plain_mp_in_per_s": mp / ms_p * 1e3}
+        del t0, t1
+
+    b0, b1 = on_card(*pyramid_batch)
+    mp = b0.numel() / 1e6
+    ms_k = cuda_time_ms(pyramid, "exact", om.KERNEL_STAGES, b0, b1)
+    ms_p = cuda_time_ms(pyramid, "exact", om.PLAIN_STAGES, b0, b1)
+    print(f"[{card}] e2e exact pyramid {tuple(b0.shape)} uint8 x2, {ME_LEVELS} levels, smooth "
+          f"{ME_SMOOTH}, kernels: {ms_k:.4f} ms, {mp / ms_k * 1e3:.2f} finest-level MP/s; "
+          f"plain: {ms_p:.4f} ms, {mp / ms_p * 1e3:.2f} MP/s")
+    e2e["me_pyramid_batched_exact"] = {"ms": ms_k, "plain_ms": ms_p,
+                                       "mp_per_s": mp / ms_k * 1e3,
+                                       "plain_mp_per_s": mp / ms_p * 1e3}
+
+    g0, g1 = on_card(load_gray("frame10.png")[None], load_gray("frame11.png")[None])
+    for name, method in (("exact", "exact"), ("hybrid", "fast")):
+        ms_k = wall_ms(pyramid, method, om.KERNEL_STAGES, g0, g1)
+        ms_p = wall_ms(pyramid, method, om.PLAIN_STAGES, g0, g1)
+        per_kernel, idle = device_profile(pyramid, method, om.KERNEL_STAGES, g0, g1)
+        busy = sum(per_kernel.values())
+        print(f"[{card}] single-pair {name} pyramid 480x640, {ME_LEVELS} levels, smooth "
+              f"{ME_SMOOTH}: wall {ms_k:.4f} ms through the kernels, {ms_p:.4f} ms through "
+              f"the plain versions; torch.profiler device ms per call {busy:.4f} "
+              f"(idle share {idle:.4f}):")
+        for kname, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
+            print(f"    {ms:9.4f}  {kname[:90]}")
+        e2e[f"me_pyramid_{name}"] = {"wall_ms": ms_k, "plain_wall_ms": ms_p,
+                                     "device_ms": busy, "idle_share": idle}
+
+    # the torch-op steps of a level, at the finest level of one pair
+    flow = pyramid("exact", om.KERNEL_STAGES, g0, g1)
+    for k in (5, ME_SMOOTH):
+        print(f"[{card}] median_filter_flow k={k} on {tuple(flow[-1].shape)}: "
+              f"{cuda_time_ms(om.median_filter_flow, flow[-1], k):.4f} ms")
+    print(f"[{card}] upscale_mv x2 'fixed' on {tuple(flow[-2].shape)}: "
+          f"{cuda_time_ms(om.upscale_mv, flow[-2], 2, 'fixed'):.4f} ms; refine_flow_subpixel "
+          f"on {tuple(flow[-1].shape)}: "
+          f"{cuda_time_ms(om._refine_subpixel, g0, g1, flow[-1], patch, 'sad'):.4f} ms; "
+          f"gaussian_pyramid of one frame: "
+          f"{cuda_time_ms(ops.gaussian_pyramid, g0, 2, ME_LEVELS, True):.4f} ms")
+
+    # each kernel at the finest level of the 4-pair pyramid, seeded as there
+    seed = om.upscale_mv(pyramid("exact", om.KERNEL_STAGES, b0, b1)[-2], 2, "fixed")
+    sb = om._quantum(om._base_max(seed))
+    base_y, base_x = km._seed_base(seed, None)
+    ys, xs = km._grid(b0.shape[1], b0.shape[2], device)
+    base1 = km.gather_padded(b1, ys + base_y, xs + base_x).contiguous()
+    out = km.me_exact_kernel(b0, b1, search, patch, "sad", seed, sb, "fixed")
+    px = b0.numel()
+    exact = (lambda: km.me_exact_kernel(b0, b1, search, patch, "sad", seed, sb, "fixed"),
+             lambda: km.me_exact(b0, b1, search, patch, "sad", seed, sb, "fixed"))
+    fast = (lambda: km.me_fast_kernel(b0, base1, search, patch, "sad"),
+            lambda: km.me_fast(b0, base1, search, patch, "sad"))
+    n = len(steps)
+    pairs = {
+        "me_exact": (*exact, nbytes(b0, b1, seed, out), px),
+        # per call n launches: both frames and the int32 state pair read (no
+        # state in the first round), the new state pair written
+        "me_fast_round": (*fast, n * nbytes(b0, base1) + (2 * n - 1) * 8 * px, n * px),
+        # per call n launches: a state pair read, a state pair or the flow written
+        "me_fast_median": (*fast, 2 * n * 8 * px, n * px),
+    }
+    shape = "x".join(str(d) for d in b0.shape)
+    times = {}
+    for name, (fk, fp, moved, elems) in pairs.items():
+        ms, call_ms, pms = kernel_ms(name, fk), cuda_time_ms(fk), cuda_time_ms(fp)
+        bms, by = bound(name, moved, elems)
+        times[name] = {"ms": ms, "call_ms": call_ms, "plain_ms": pms, "bound_ms": bms,
+                       "bound_by": by, "library_ms": None}
+        what = (f"seeded, bound {sb}" if name == "me_exact" else
+                f"{n} launches per call; whole call and plain: the {n}-round iteration")
+        print(f"[{card}] {name} at {shape} ({what}): kernel {ms:.4f} ms (whole call "
+              f"{call_ms:.4f} ms), plain {pms:.4f} ms, bound {bms:.4f} ms ({by}: "
+              f"{moved / 1e6:.1f} MB), library none")
+    t0, t1 = on_card(*noisy_pairs(rng, ME_EXACT_BATCH))
+    ms = kernel_ms("me_exact", lambda: km.me_exact_kernel(t0, t1, search, patch))
+    print(f"[{card}] me_exact at {tuple(t0.shape)} unseeded: kernel {ms:.4f} ms, "
+          f"{t0.numel() / 1e6 / ms * 1e3:.2f} MP/s")
+    return times, e2e
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="input noise and rolls")
@@ -689,12 +1084,19 @@ def main() -> int:
     batches = histeq_batches(rng, device)
     errs.update(histeq_kernel_vs_plain(batches, rng, device))
 
+    # phase 3c: the motion kernels against their plain versions
+    errs.update(me_kernel_vs_plain(rng, device))
+
     # phase 4: RAISR end to end
     batch = lenna_batch(rng, BATCH, LR)
     out, launches = main_path(model, batch, load_image("lenna.png"), device)
 
     # phase 4b: histeq end to end
     launches.update(histeq_main_path(batches, rng, device))
+
+    # phases 4c and 5c: motion estimation end to end, and its quality
+    me_launches, me_epe, pyramid_batch = me_main_path(rng, device)
+    launches.update(me_launches)
 
     # phase 5: quality
     quality(model)
@@ -706,7 +1108,12 @@ def main() -> int:
     # phase 6b: histeq timing
     histeq_times, histeq_e2e = histeq_timing(batches, card, device)
     times.update(histeq_times)
-    e2e = {"raisr_x2": e2e, **histeq_e2e}
+    del batches
+
+    # phase 6c: motion timing
+    me_times, me_e2e = me_timing(rng, pyramid_batch, card, device)
+    times.update(me_times)
+    e2e = {"raisr_x2": e2e, **histeq_e2e, **me_e2e, "me_epe": me_epe}
 
     kernels = [
         {

@@ -3,6 +3,7 @@ CPU, and never falls back to the CPU on its own."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -27,3 +28,14 @@ def as_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def as_tensor(x, device=None) -> torch.Tensor:
+    """A tensor stays on its device unless one is given; anything else goes
+    through numpy to ``as_device(device)`` (the card by default)."""
+    if isinstance(x, torch.Tensor):
+        return x if device is None else x.to(as_device(device))
+    arr = np.asarray(x)
+    if not arr.flags.writeable:  # torch wants writable memory
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(as_device(device))

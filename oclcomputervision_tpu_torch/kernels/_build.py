@@ -1,6 +1,7 @@
 """Build the CUDA kernels in ``csrc/`` with nvcc and bind them with ctypes.
 
-All ``csrc/*.cu`` files compile, in one nvcc call, into one shared library
+All ``csrc/*.cu`` files compile, one nvcc process per source and all started
+together, into objects that one more nvcc call links into one shared library
 with a plain C interface (``build/ocv_torch_kernels/libocvk.so`` under the
 repository root). No PyTorch header is included, so a build takes seconds.
 The library is rebuilt whenever a source or a flag changes (a SHA-256 stamp
@@ -39,7 +40,7 @@ LIB_PATH = os.path.join(BUILD_DIR, "libocvk.so")
 # compute them; kernels that want a fused multiply-add call fmaf() itself.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false",
 )
 
 LAUNCHES = {
@@ -50,6 +51,9 @@ LAUNCHES = {
     "apply_lut": 0,
     "hist_tiles": 0,
     "blend_blocks": 0,
+    "me_exact": 0,
+    "me_fast_round": 0,
+    "me_fast_median": 0,
 }
 
 _VP = ctypes.c_void_p
@@ -73,6 +77,13 @@ _SIGNATURES = {
     "ocvk_hist_tiles": [_VP] * 2 + [_I] * 6 + [_VP],
     # x, m, out, nimg, h, w, nby, nbx, bh, bw, rows_per_block, stream
     "ocvk_blend_blocks": [_VP] * 3 + [_I] * 8 + [_VP],
+    # f0, f1, seed, out, steps (host ints), nsteps, nimg, h, w, ps, ssd,
+    # bound, shipped, stream
+    "ocvk_me_exact": [_VP] * 5 + [_I] * 8 + [_VP],
+    # f0, f1, dy_in, dx_in, dy_out, dx_out, nimg, h, w, ps, step, ssd, stream
+    "ocvk_me_fast_round": [_VP] * 6 + [_I] * 6 + [_VP],
+    # dy_in, dx_in, dy_out, dx_out, flow, nimg, h, w, stream
+    "ocvk_me_fast_median": [_VP] * 5 + [_I] * 3 + [_VP],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -122,16 +133,33 @@ def build() -> float:
             if f.read().strip() == digest:
                 return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(s for s in sources if s.endswith(".cu"))]
+    tag = f"{os.getpid()}.tmp"
+    units = [s for s in sources if s.endswith(".cu")]
+    objects = [
+        os.path.join(BUILD_DIR, f"{os.path.basename(s)[:-3]}.{tag}.o") for s in units
+    ]
+    tmp = f"{LIB_PATH}.{tag}"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        procs = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for cmd in ([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(units, objects))
+        ]
+        results = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
+        link = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objects]
+        if all(rc == 0 for _, _, rc in results):
+            res = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            results.append((link, res.stdout, res.returncode))
+    finally:
+        for o in objects:
+            if os.path.exists(o):
+                os.remove(o)
     secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}{res.stderr}"
-        )
+    failed = [(cmd, out, rc) for cmd, out, rc in results if rc != 0]
+    if failed:
+        raise RuntimeError("\n".join(
+            f"nvcc failed (exit {rc}):\n{' '.join(cmd)}\n{out}" for cmd, out, rc in failed
+        ))
     os.replace(tmp, LIB_PATH)
     with open(stamp, "w") as f:
         f.write(digest)

@@ -1,15 +1,35 @@
-"""Rank-3 layout guard of the batch-first ops (a copy of the JAX package's
-``ops/_layout.guard_batch_first``).
+"""Rank-3 layout guards of the public ops (a copy of the JAX package's
+``ops/_layout.py``).
 
-The luma ops (histeq) read rank-3 input as a batch-first ``[B, H, W]``
-stack. A rank-3 input whose trailing dim looks like channels (<=
-MAX_CHANNELS) is a channels-last color image passed by mistake: no real
-luma batch has a 4-px-wide image, so it raises.
+The ops split into two rank-3 conventions: the luma ops (histeq, motion
+estimation) read batch-first ``[B, H, W]``, the channels-last ops
+(pyr_down) read ``[H, W, C]``.
+
+- channels-last ops take ``batched=None``: the default reads a trailing dim
+  <= MAX_CHANNELS as channels and raises on anything wider, asking for an
+  explicit ``batched=``; True forces [B, H, W], False forces [H, W, C].
+- batch-first ops raise when a rank-3 input's trailing dim looks like
+  channels (<= MAX_CHANNELS): no real luma batch has a 4-px-wide image, so
+  such an input is a channels-last color image passed by mistake.
 """
 
 from __future__ import annotations
 
 MAX_CHANNELS = 4
+
+
+def rank3_is_batched(shape, batched, op: str) -> bool:
+    """Resolve a channels-last op's rank-3 layout: True = [B, H, W]."""
+    if batched is not None:
+        return bool(batched)
+    if shape[-1] <= MAX_CHANNELS:
+        return False
+    raise ValueError(
+        f"{op}: ambiguous rank-3 input {tuple(shape)} - trailing dim "
+        f"{shape[-1]} > {MAX_CHANNELS} does not look like channels. Pass "
+        f"batched=True for a [B, H, W] luma stack or batched=False for "
+        f"[H, W, C]."
+    )
 
 
 def guard_batch_first(shape, op: str) -> None:

@@ -26,10 +26,9 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Tuple
 
-import numpy as np
 import torch
 
-from oclcomputervision_tpu_torch._device import as_device
+from oclcomputervision_tpu_torch._device import as_tensor
 from oclcomputervision_tpu_torch.kernels import histeq as khisteq
 from oclcomputervision_tpu_torch.kernels import localeq as klocaleq
 from oclcomputervision_tpu_torch.ops._layout import guard_batch_first
@@ -57,20 +56,9 @@ PLAIN_STAGES = Stages(
 )
 
 
-def _tensor(x, device) -> torch.Tensor:
-    """A tensor stays on its device unless one is given; anything else goes
-    through numpy to ``as_device(device)`` (the card by default)."""
-    if isinstance(x, torch.Tensor):
-        return x if device is None else x.to(as_device(device))
-    arr = np.asarray(x)
-    if not arr.flags.writeable:  # torch wants writable memory
-        arr = arr.copy()
-    return torch.from_numpy(arr).to(as_device(device))
-
-
 def _image(gray, device) -> torch.Tensor:
-    """A contiguous uint8 tensor (``_tensor``'s device rule)."""
-    t = _tensor(gray, device)
+    """A contiguous uint8 tensor (``as_tensor``'s device rule)."""
+    t = as_tensor(gray, device)
     if t.dtype != torch.uint8:
         raise TypeError(f"expected uint8 pixels, got {t.dtype}")
     return t.contiguous()
@@ -153,7 +141,7 @@ def apply_lut(gray, lut, *, device=None) -> torch.Tensor:
     """Per-pixel LUT apply of a uint8 LUT [256]: out[p] = lut[gray[p]]
     (hist.cl:92-102), any shape."""
     g = _image(gray, device)
-    lut_t = _tensor(lut, g.device)
+    lut_t = as_tensor(lut, g.device)
     if lut_t.dtype != torch.uint8 or tuple(lut_t.shape) != (256,):
         raise TypeError(f"lut must be uint8 [256], got {lut_t.dtype} {tuple(lut_t.shape)}")
     out = khisteq.apply_lut_kernel(g.reshape(1, -1), lut_t.reshape(1, 256).contiguous())
@@ -219,7 +207,7 @@ def apply_block_mappings(
     block (H <= (nby + 1) bh - bh/2, likewise W) is accepted.
     """
     g3, single = _luma(gray, device, "apply_block_mappings")
-    m4 = _tensor(mappings, g3.device).to(torch.float32)
+    m4 = as_tensor(mappings, g3.device).to(torch.float32)
     if single:
         m4 = m4[None]
     if m4.ndim != 4 or m4.shape[0] != g3.shape[0] or m4.shape[-1] != 256:

@@ -1,6 +1,7 @@
 """Config dataclasses of the ported ops.
 
-Copies of ``HistEqConfig``, ``LocalHistEqConfig`` and ``RaisrConfig`` from
+Copies of ``HistEqConfig``, ``LocalHistEqConfig``, ``PyramidConfig``,
+``MotionConfig`` and ``RaisrConfig`` from
 the JAX package's ``utils/config.py``: the same frozen dataclasses, fields
 and defaults (``tests/test_torch_port_imports.py`` holds them equal).
 """
@@ -31,6 +32,23 @@ class LocalHistEqConfig(HistEqConfig):
     alpha: float = 0.5
     clip: float = 3.0
     blockshape: Tuple[int, int] = (256, 256)
+
+
+@dataclasses.dataclass(frozen=True)
+class PyramidConfig:
+    """Gaussian pyramid (reference pyramid/pyramid.py:7)."""
+
+    scale: int = 2
+    depth: int = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class MotionConfig:
+    """Block-matching motion estimation (reference me_pyramid.py:130)."""
+
+    search_size: int = 15
+    patch_size: int = 5
+    levels: int = 3
 
 
 @dataclasses.dataclass(frozen=True)

@@ -93,11 +93,26 @@ def gray(rgb: np.ndarray) -> np.ndarray:
     return np.round(y).clip(0, 255).astype(np.uint8)
 
 
+def gray_libpng(rgb: np.ndarray) -> np.ndarray:
+    """The luma libpng computes when it decodes RGB to gray with BT.601
+    weights (``png_set_rgb_to_gray``): 15-bit fixed-point weights 9797, 19234
+    and 3737, the sum TRUNCATED, so about half the pixels come out one level
+    below ``gray``. It is what ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)``
+    returns for a PNG without a gamma chunk, and so what the JAX package's
+    ``load_gray`` gives where cv2 is installed: its published quality
+    numbers on the Middlebury frames were taken on this decode."""
+    x = rgb.astype(np.int64)
+    return ((9797 * x[..., 0] + 19234 * x[..., 1] + 3737 * x[..., 2]) >> 15).astype(np.uint8)
+
+
 def load_image(name: str) -> np.ndarray:
     """An asset (or an absolute path) as RGB uint8 [H, W, 3]."""
     return read_png(name if os.path.isabs(name) else asset_path(name))
 
 
-def load_gray(name: str) -> np.ndarray:
-    """An asset (or an absolute path) as BT.601 luma uint8 [H, W]."""
-    return gray(load_image(name))
+def load_gray(name: str, libpng: bool = False) -> np.ndarray:
+    """An asset (or an absolute path) as BT.601 luma uint8 [H, W]: rounded
+    (``gray``), or with ``libpng=True`` truncated as libpng and
+    ``cv2.imread(..., IMREAD_GRAYSCALE)`` decode it (``gray_libpng``)."""
+    rgb = load_image(name)
+    return gray_libpng(rgb) if libpng else gray(rgb)

@@ -11,12 +11,18 @@ import pytest
 
 from oclcomputervision_tpu.oracle import histeq as jax_oracle_histeq
 from oclcomputervision_tpu.oracle import interpolation as jax_oracle_interp
+from oclcomputervision_tpu.ops import _layout as jax_layout
+from oclcomputervision_tpu.oracle import motion as jax_oracle_motion
+from oclcomputervision_tpu.oracle import pyramid as jax_oracle_pyramid
 from oclcomputervision_tpu.oracle import raisr as jax_oracle_raisr
 from oclcomputervision_tpu.utils import config as jax_config
 from oclcomputervision_tpu.utils import metrics as jax_metrics
 from oclcomputervision_tpu_torch._device import as_device
 from oclcomputervision_tpu_torch.oracle import histeq as port_oracle_histeq
 from oclcomputervision_tpu_torch.oracle import interpolation as port_oracle_interp
+from oclcomputervision_tpu_torch.ops import _layout as port_layout
+from oclcomputervision_tpu_torch.oracle import motion as port_oracle_motion
+from oclcomputervision_tpu_torch.oracle import pyramid as port_oracle_pyramid
 from oclcomputervision_tpu_torch.oracle import raisr as port_oracle_raisr
 from oclcomputervision_tpu_torch.utils import asset_path, config, metrics
 from oclcomputervision_tpu_torch.utils.assets import ASSETS_DIR
@@ -51,7 +57,9 @@ def test_no_import_of_jax_or_the_jax_package(path):
     assert not bad, f"{path} imports {bad}"
 
 
-@pytest.mark.parametrize("name", ["HistEqConfig", "LocalHistEqConfig", "RaisrConfig"])
+@pytest.mark.parametrize(
+    "name", ["HistEqConfig", "LocalHistEqConfig", "PyramidConfig", "MotionConfig", "RaisrConfig"]
+)
 def test_config_copies_equal_jax(name):
     port_cls, jax_cls = getattr(config, name), getattr(jax_config, name)
     fields = [(f.name, f.default, f.type) for f in dataclasses.fields(port_cls)]
@@ -143,6 +151,81 @@ def test_oracle_raisr_copy_equals_jax(scale):
             port_oracle_raisr.raisr_upsample(img, filters, pc),
             jax_oracle_raisr.raisr_upsample(img, filters, jc),
         )
+
+
+@pytest.mark.parametrize("module", ["motion", "pyramid"])
+def test_oracle_motion_and_pyramid_copies_are_letter_for_letter(module):
+    port, jax_side = (
+        os.path.join(REPO, pkg, "oracle", f"{module}.py")
+        for pkg in ("oclcomputervision_tpu_torch", "oclcomputervision_tpu")
+    )
+    with open(port) as a, open(jax_side) as b:
+        assert a.read() == b.read()
+
+
+def test_oracle_motion_and_pyramid_copies_equal_jax():
+    rng = np.random.default_rng(0)
+    f0, f1 = rng.integers(0, 256, (2, 20, 28), dtype=np.uint8)
+    seed = rng.uniform(-6, 6, (20, 28, 2)).astype(np.float32)
+    assert port_oracle_motion.MEDIAN9_EXCHANGES == jax_oracle_motion.MEDIAN9_EXCHANGES
+    assert port_oracle_motion.me_steps(15, 5) == jax_oracle_motion.me_steps(15, 5) == [5, 2, 1]
+    for kw in ({}, {"seed": seed, "seed_mode": "fixed"}, {"costfn": "wsad_shipped"}):
+        np.testing.assert_array_equal(
+            port_oracle_motion.estimate_motion_vector(f0, f1, **kw),
+            jax_oracle_motion.estimate_motion_vector(f0, f1, **kw),
+        )
+    for mode in ("shipped", "fixed"):
+        np.testing.assert_array_equal(
+            port_oracle_motion.upscale_mv(seed, 2, mode), jax_oracle_motion.upscale_mv(seed, 2, mode)
+        )
+    for got, want in zip(
+        port_oracle_pyramid.gaussian_pyramid(f0, 2, 3), jax_oracle_pyramid.gaussian_pyramid(f0, 2, 3)
+    ):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_flo_and_epe_copies_equal_jax(tmp_path):
+    from oclcomputervision_tpu.utils import flo as jax_flo
+    from oclcomputervision_tpu_torch.utils import flo as port_flo
+
+    gt = port_flo.read_flo(asset_path("flow10.flo"))
+    assert gt.dtype == np.float32 and gt.shape == (480, 640, 2)
+    np.testing.assert_array_equal(gt, jax_flo.read_flo(asset_path("flow10.flo")))
+    flow = np.random.default_rng(1).standard_normal((7, 9, 2)).astype(np.float32)
+    port_flo.write_flo(flow, str(tmp_path / "port.flo"))
+    jax_flo.write_flo(flow, str(tmp_path / "jax.flo"))
+    assert (tmp_path / "port.flo").read_bytes() == (tmp_path / "jax.flo").read_bytes()
+    np.testing.assert_array_equal(port_flo.read_flo(str(tmp_path / "jax.flo")), flow)
+    with pytest.raises(ValueError):
+        port_flo.decode_flo(b"\x00" * 16)
+    assert metrics.epe(flow, flow + 1.0) == jax_metrics.epe(flow, flow + 1.0)
+    assert metrics.epe(np.zeros_like(gt), gt) == jax_metrics.epe(np.zeros_like(gt), gt)
+
+
+def test_layout_guards_equal_jax():
+    assert port_layout.MAX_CHANNELS == jax_layout.MAX_CHANNELS
+    for shape, batched in (((5, 40, 3), None), ((5, 40, 3), True), ((5, 40, 56), False)):
+        assert port_layout.rank3_is_batched(shape, batched, "op") == jax_layout.rank3_is_batched(
+            shape, batched, "op"
+        )
+    for layout in (port_layout, jax_layout):
+        with pytest.raises(ValueError, match="ambiguous"):
+            layout.rank3_is_batched((5, 40, 56), None, "op")
+        with pytest.raises(ValueError, match="channels-last"):
+            layout.guard_batch_first((40, 56, 3), "op")
+
+
+def test_libpng_luma_is_cv2_imread_grayscale():
+    import cv2
+
+    from oclcomputervision_tpu_torch.utils import load_gray
+
+    for name in ("frame10.png", "frame11.png"):
+        want = cv2.imread(asset_path(name), cv2.IMREAD_GRAYSCALE)
+        np.testing.assert_array_equal(load_gray(name, libpng=True), want)
+        # the rounded luma is cv2.cvtColor's; libpng truncates, so it is never above it
+        d = load_gray(name).astype(int) - want
+        assert d.min() == 0 and d.max() == 1
 
 
 def test_as_device_defaults_to_the_card():
