@@ -12,7 +12,14 @@ failure raises, and the script exits non-zero without the result line):
 2. build the hand-written kernels from ``kernels/csrc`` with nvcc;
 3. each RAISR kernel against its plain PyTorch version on the card, at the
    bench geometry (1024x1024 LR -> 2048x2048 HR, x2) with a batch of 2, and
-   with the x3 and x4 banks on one 256x256 image;
+   with the x3 and x4 banks on one 256x256 image; then the upscale and apply
+   kernels at x2, x3 and x4 on geometries their tiles do not divide (LR
+   100x75; 37x100 planes in 45x108 of LR 13x21, which no image gives) or
+   that are smaller than one tile (20x30), the upscale over the
+   whole plane (halo and padding columns included), the apply with three
+   channels over one bucket map and with bucket maps that are the hash's
+   own, one bucket everywhere, uniformly random, and random with entries -1
+   and 216, which must give 0;
 3b. each histeq kernel against its plain version, which it must equal: on
    random, natural (lenna tiled, rolled, +-8 noise) and constant batches at
    bench.py's geometries (hist256 and apply_lut on 256x768x1280, hist_tiles
@@ -52,8 +59,9 @@ failure raises, and the script exits non-zero without the result line):
    versions, a torch.profiler breakdown of the kernel path (device ms per
    kernel and the idle share), and at the batch's shapes each kernel's own
    device time (torch.profiler), its wrapper call's and its plain version's
-   time (CUDA events), and for the upscale the time of F.interpolate
-   (align_corners=True), checked to give the same values;
+   time (CUDA events), for the upscale the time of F.interpolate
+   (align_corners=True), checked to give the same values, and for the apply
+   its time on uniformly random buckets beside the hash's own;
 6b. histeq timing, the same way: input MP/s of both ops through the
    kernels and the plain versions, their profiles, and each kernel's,
    plain version's and single PyTorch call's time at the bench shapes
@@ -279,6 +287,90 @@ def kernel_vs_plain(model, imgs, device):
     }
 
 
+# LR batches for tiling_cases, each with the plane geometry (h2p, w2p, hq, wq)
+# to run it at: None is the pipeline's own, the last is one no image gives,
+# whose sizes the kernels' tiles divide on neither axis
+TILING_SHAPES = (((2, 100, 75), None), ((1, 20, 30), None), ((1, 13, 21), (37, 100, 45, 108)))
+
+
+def tiling_cases(model, rng, device):
+    """Phase 3, the cases a tiled kernel can get wrong: the upscale and apply
+    kernels against their plain versions on geometries that the kernels'
+    tiles do not divide or that are smaller than one tile, the apply with
+    three channels over one bucket map and on four kinds of bucket map."""
+    import torch
+
+    from oclcomputervision_tpu_torch.kernels import raisr as kr
+    from oclcomputervision_tpu_torch.kernels import upscale as ku
+    from oclcomputervision_tpu_torch.ops.raisr import plane_geometry
+
+    cfg = model.cfg
+    nbucket = cfg.num_angle * cfg.num_strength * cfg.num_coherence
+    up_worst = ap_worst = 0.0
+    for (n, h, w), planes_geo in TILING_SHAPES:
+        x01 = torch.from_numpy(rng.random((n, h, w), dtype="float32")).to(device)
+        geo = plane_geometry(h, w, cfg)
+        h2p, w2p, hq, wq = planes_geo or (geo.h2p, geo.w2p, geo.hq, geo.wq)
+        up_k = ku.upscale_planes_kernel(x01, cfg, hq, wq, geo.hp)
+        up_p = ku.upscale_planes(x01, cfg, hq, wq, geo.hp)
+        # over the whole [hq, wq] plane: halo rows and padding columns too
+        up_err = (up_k - up_p).abs().max().item()
+        gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 31)))
+        rand = torch.randint(0, nbucket, (n, cfg.scale**2, h2p, w2p), generator=gen,
+                             device=device, dtype=torch.int32)
+        holes = rand.clone()
+        holes[..., ::7, ::5] = -1
+        holes[..., 3::11, 1::3] = nbucket
+        maps = {"one bucket": torch.full_like(rand, 17), "random": rand,
+                "random with -1 and 216": holes}
+        if planes_geo is None:
+            maps["hash"] = kr.hash_planes_kernel(up_k, cfg, geo.hp, h2p, w2p)
+        # three channels stacked over one bucket map, as the RGB path runs it
+        planes = torch.cat([up_k, 0.5 * up_k, 0.25 * up_k]).contiguous()
+        ap_errs = {}
+        for name, bk in maps.items():
+            ap_k = kr.apply_filters_planes_kernel(planes, bk, model.filters, cfg)
+            ap_p = kr.apply_filters_planes(planes, bk, model.filters, cfg)
+            torch.cuda.synchronize()
+            ap_errs[name] = (ap_k - ap_p).abs().max().item()
+            if name == "random" and not ap_k.abs().max().item() > 0:
+                raise AssertionError("apply kernel wrote only zeros")
+            if name.endswith("216"):
+                out_of_range = ((bk < 0) | (bk >= nbucket)).repeat(3, 1, 1, 1)
+                if ap_k[out_of_range].abs().max().item() != 0.0:
+                    raise AssertionError("an out-of-range bucket did not give 0")
+        up_worst = max(up_worst, up_err)
+        ap_worst = max(ap_worst, *ap_errs.values())
+        print(f"x{cfg.scale} LR {(n, h, w)} -> planes {tuple(up_k.shape)}: upscale_planes "
+              f"max|kernel - plain| over the whole plane = {up_err:.3e}; raisr_apply on "
+              f"{tuple(planes.shape)} over {tuple(rand.shape)} buckets: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in ap_errs.items()))
+    if not up_worst <= UPSCALE_TOL:
+        raise AssertionError(f"upscale kernel off by {up_worst}")
+    if not ap_worst <= APPLY_TOL:
+        raise AssertionError(f"apply kernel off by {ap_worst}")
+    return {"upscale_planes": up_worst, "raisr_apply": ap_worst}
+
+
+def bank_passes(buckets) -> float:
+    """Mean shared-memory passes per filter-row load of ``raisr_apply``'s
+    warps on these bucket planes [B, s*s, h2p, w2p]: a warp is 2 plane rows
+    x 16 threads of 4 adjacent pixels and loads pixel k of every thread at
+    once; rows (buckets) that are equal broadcast, different rows that are
+    equal mod 32 share a bank and take a pass each. h2p must be even and w2p
+    a multiple of 64, as every plane geometry is."""
+    import torch
+
+    b, ss, h, w = buckets.shape
+    lanes = (buckets.reshape(b, ss, h // 2, 2, w // 64, 16, 4)
+             .permute(0, 1, 2, 4, 6, 3, 5).reshape(-1, 32).long())
+    v, _ = lanes.sort(dim=1)
+    first = torch.ones_like(v, dtype=torch.bool)
+    first[:, 1:] = v[:, 1:] != v[:, :-1]
+    per_bank = torch.zeros_like(v).scatter_add_(1, v % 32, first.long())
+    return per_bank.max(dim=1).values.float().mean().item()
+
+
 def main_path(model, batch, rgb, device):
     """Phase 4: the slice through the model, counting kernel launches."""
     import torch
@@ -435,6 +527,21 @@ def timing(model, batch, out_kernel, card, device):
         print(f"[{card}] {name} at {shape}: kernel {ms:.4f} ms (whole call {call_ms:.4f} ms), "
               f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}: {moved[name][0] / 1e6:.1f} MB), "
               f"library {lib}")
+    up_t = times["upscale_planes"]
+    print(f"[{card}] upscale_planes kernel / F.interpolate: "
+          f"{up_t['ms'] / up_t['library_ms']:.4f}")
+    # the filter rows a warp gathers from shared memory collide more the less
+    # its buckets cluster: natural images are the favourable case
+    gen = torch.Generator(device=device).manual_seed(0)
+    rand = torch.randint(0, cfg.num_angle * cfg.num_strength * cfg.num_coherence, hb.shape,
+                         generator=gen, device=device, dtype=torch.int32)
+    rand_ms = kernel_ms("raisr_apply", lambda: kr.apply_filters_planes_kernel(
+        up, rand, model.filters, cfg))
+    times["raisr_apply"]["random_buckets_ms"] = rand_ms
+    passes = bank_passes(hb[:2]), bank_passes(rand[:2])
+    print(f"[{card}] raisr_apply at {shape}: {times['raisr_apply']['ms']:.4f} ms on the "
+          f"hash's own buckets ({passes[0]:.4f} shared-memory passes per filter-row load), "
+          f"{rand_ms:.4f} ms on uniformly random buckets ({passes[1]:.4f} passes)")
     return times, {"e2e_ms": ms_k, "e2e_plain_ms": ms_p, "idle_share": idle,
                    "mp_out_per_s": mp_out / ms_k * 1e3,
                    "plain_mp_out_per_s": mp_out / ms_p * 1e3}
@@ -1076,9 +1183,15 @@ def main() -> int:
 
     # phase 3: kernels against their plain versions (x3 and x4 at a small size)
     errs = kernel_vs_plain(model, lenna_batch(rng, 2, LR), device)
+    worst = [tiling_cases(model, rng, device)]
     for scale in (3, 4):
         other = RaisrModel.load(asset_path(f"raisr_filters_x{scale}.npz"), device=device)
-        kernel_vs_plain(other, lenna_batch(rng, 1, 256), device)
+        small = kernel_vs_plain(other, lenna_batch(rng, 1, 256), device)
+        worst += [{k: v["max_abs_err"] for k, v in small.items()},
+                  tiling_cases(other, rng, device)]
+    for name in ("upscale_planes", "raisr_apply"):  # the largest over every case
+        errs[name]["max_abs_err"] = max(errs[name]["max_abs_err"],
+                                        *(w[name] for w in worst))
 
     # phase 3b: the histeq kernels against their plain versions
     batches = histeq_batches(rng, device)

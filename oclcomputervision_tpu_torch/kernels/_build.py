@@ -60,9 +60,9 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 # entry point -> argtypes (every pointer and the stream as c_void_p)
 _SIGNATURES = {
-    # x, out, row_off, row_n, row_w, col_off, col_n, col_w,
-    # nimg, h, w, s, hq, wq, nd, stream
-    "ocvk_upscale_planes": [_VP] * 8 + [_I] * 7 + [_VP],
+    # x, out, row_idx, row_w, col_idx, col_w,
+    # nimg, h, w, s, hq, wq, tile_h, tile_w, span_h, span_w, stream
+    "ocvk_upscale_planes": [_VP] * 6 + [_I] * 10 + [_VP],
     # planes, out, k1, squant, cquant, nimg, s, hp, rows, wq, h2p, w2p,
     # glen, na, ns, nc, nsq, ncq, stream
     "ocvk_raisr_hash": [_VP] * 5 + [_I] * 13 + [_VP],

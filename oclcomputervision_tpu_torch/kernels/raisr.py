@@ -19,8 +19,10 @@ kernel for a CUDA tensor.
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
+import weakref
 
 import numpy as np
 import torch
@@ -219,14 +221,39 @@ def apply_filters_planes(
     return out
 
 
+BANK_ROW_STRIDE = 122  # bf16 per filter row on the card: 61 words, an odd count
+
+# laid-out banks, newest last: key -> (weak reference to the filters, bank)
+_BANKS: collections.OrderedDict = collections.OrderedDict()
+_BANKS_KEPT = 8
+
+
 def _bank_rows(filters: torch.Tensor, cfg) -> tuple[torch.Tensor, int]:
-    """Per-phase bf16 rows, each padded to a multiple of 8 taps (16 bytes)."""
+    """The bank as ``csrc/raisr_apply.cu`` reads it: per-phase bf16 rows
+    [s*s, buckets, BANK_ROW_STRIDE], ``phase_rows`` followed by zero padding.
+    The odd word stride puts one tap of different rows on different
+    shared-memory banks.
+
+    Built once per bank: the result is kept for this very tensor (its
+    storage address, version counter, device and the scale) and reused until
+    the tensor is changed in place or goes away."""
+    key = (filters.data_ptr(), filters._version, filters.device, cfg.scale,
+           cfg.filter_len, _num_buckets(cfg))
+    hit = _BANKS.get(key)
+    if hit is not None and hit[0]() is filters:
+        _BANKS.move_to_end(key)
+        return hit[1], BANK_ROW_STRIDE
     rows = phase_rows(filters, cfg)
     ntap = rows.shape[-1]
-    stride = -(-ntap // 8) * 8
-    bank = torch.zeros(rows.shape[:2] + (stride,), dtype=torch.bfloat16, device=rows.device)
+    if ntap > BANK_ROW_STRIDE:
+        raise ValueError(f"{ntap} taps do not fit a row of {BANK_ROW_STRIDE}")
+    bank = torch.zeros(rows.shape[:2] + (BANK_ROW_STRIDE,), dtype=torch.bfloat16,
+                       device=rows.device)
     bank[..., :ntap] = rows
-    return bank, stride
+    _BANKS[key] = (weakref.ref(filters), bank)
+    while len(_BANKS) > _BANKS_KEPT:
+        _BANKS.popitem(last=False)
+    return bank, BANK_ROW_STRIDE
 
 
 def apply_filters_planes_kernel(
@@ -249,15 +276,16 @@ def apply_filters_planes_kernel(
         raise ValueError("planes, bucket_planes and filters must share a device")
     if filters.dtype != torch.float32 or filters.numel() != cfg.num_filters * fl * fl:
         raise ValueError(f"filters must be f32 [{cfg.num_filters}, {fl}, {fl}]")
-    if ss != s * s or ssb != ss or nimg % nb or nimg > 65535:
+    if ss != s * s or ssb != ss or nimg % nb:
         raise ValueError(f"planes {tuple(planes.shape)} and buckets "
                          f"{tuple(bucket_planes.shape)} do not match at scale {s}")
     if rows < h2p + 2 * hp or wq < w2p + 2 * hp:
         raise ValueError(f"planes {tuple(planes.shape)} lack the {hp}-plane halo")
-    if fl != 11 or s not in (2, 3, 4):
+    if fl != 11 or s not in (2, 3, 4) or w2p % 4:
         raise ValueError(
-            f"the CUDA apply kernel is compiled for filter_len 11 at scales 2-4, "
-            f"got filter_len {fl} at scale {s}"
+            f"the CUDA apply kernel is compiled for filter_len 11 at scales 2-4 and "
+            f"plane widths that are multiples of 4, got filter_len {fl} at scale {s}, "
+            f"w2p {w2p}"
         )
     bank, stride = _bank_rows(filters, cfg)
     out = torch.empty((nimg, ss, h2p, w2p), dtype=torch.float32, device=planes.device)

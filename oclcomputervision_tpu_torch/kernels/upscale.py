@@ -6,9 +6,11 @@ mirroring the XLA twin ``ops/raisr.upscale_planes``;
 ``upscale_planes_kernel`` is the wrapper over ``csrc/upscale_planes.cu``.
 
 Both compute, per plane element, the same separately rounded f32 products
-and sums in the same sorted-offset order, so the kernel matches the plain
-version bit for bit. Against the JAX twin the bound is 1 f32 ULP (XLA:CPU
-contracts multiply-adds into FMAs).
+and sums in the same sorted-offset order; the kernel leaves out the offsets
+whose weight is zero at that element (``compact_axis_table``), which adds
+nothing for finite inputs, so it matches the plain version bit for bit.
+Against the JAX twin the bound is 1 f32 ULP (XLA:CPU contracts multiply-adds
+into FMAs).
 
 Geometry: ``[B, h, w]`` f32 -> ``[B, s*s, hq, wq]`` f32 planes, origin
 (hp, hp), edge-replicated outside the image. Unlike the TPU kernel there
@@ -62,43 +64,80 @@ def upscale_planes(x01: torch.Tensor, cfg, hq: int, wq: int, hp: int) -> torch.T
     return torch.stack(planes, dim=1)
 
 
+# csrc/upscale_planes.cu's tile: plane rows x columns per block, and the LR
+# rows x columns it stages for them (the C entry point refuses any other)
+TILE = (8, 128)
+SPAN = (TILE[0] + 4, TILE[1] + 4)
+
+
+def compact_axis_table(n_in: int, s: int, org: int, n_out: int, tile: int, span: int):
+    """One axis of the stencil as the kernel reads it: source indices
+    ``idx`` [2, s, n_out] int32 (clamped to the image, first <= second) and
+    weights ``wgt`` [2, s, n_out] f32, such that the plain version's sum
+    over a phase's sorted offsets equals
+    ``wgt[0] * x[idx[0]] + wgt[1] * x[idx[1]]`` bit for bit: at most two
+    offsets carry a non-zero weight at any one index, the others add
+    ``0 * x = +0``. Where one offset carries it all, the second tap repeats
+    the first with weight 0.
+
+    Raises if an index decreases along the axis or a ``tile`` of plane
+    indices reaches ``span`` or more source pixels: the kernel stages
+    ``span`` of them from the first index of the tile's first element."""
+    idx = np.zeros((2, s, n_out), np.int32)
+    wgt = np.zeros((2, s, n_out), np.float32)
+    j = np.arange(n_out)
+    for a, taps in enumerate(_axis_taps(n_in, s, org, n_out)):
+        offs = np.array([d for d, _ in taps])
+        dense = np.stack([wv for _, wv in taps])  # [offsets, n_out], sorted
+        live = dense != 0
+        count = live.sum(0)
+        if count.min() < 1 or count.max() > 2:
+            raise ValueError(f"upscale stencil with {count.min()}-{count.max()} taps")
+        first = live.argmax(0)
+        last = len(taps) - 1 - live[::-1].argmax(0)
+        for k, pick in enumerate((first, last)):
+            idx[k, a] = np.clip(j + offs[pick], 0, n_in - 1)
+            wgt[k, a] = dense[pick, j]
+        wgt[1, a][count == 1] = 0.0
+    if (np.diff(idx, axis=2) < 0).any() or (idx[0] > idx[1]).any():
+        raise ValueError("upscale source indices decrease along the axis")
+    starts = np.arange(0, n_out, tile)
+    ends = np.minimum(starts + tile, n_out) - 1
+    reach = idx[1][:, ends].max(0) - idx[0][:, starts].min(0)
+    if reach.max() >= span:
+        raise ValueError(f"a tile of {tile} reaches {reach.max() + 1} > {span} source pixels")
+    return idx, wgt
+
+
 @functools.lru_cache(maxsize=16)
 def _device_tables(h: int, w: int, s: int, hp: int, hq: int, wq: int, device):
-    """Offsets [s, nd] i32, offset counts [s] i32 and weights [s, nd, n]
-    f32 for rows and for columns, on the device; nd = most offsets of any
-    phase on either axis."""
-    axes = (_axis_taps(h, s, hp, hq), _axis_taps(w, s, hp, wq))
-    nd = max(len(ph) for taps in axes for ph in taps)
-    out = []
-    for taps, n_out in zip(axes, (hq, wq)):
-        off = np.zeros((s, nd), np.int32)
-        cnt = np.array([len(ph) for ph in taps], np.int32)
-        wgt = np.zeros((s, nd, n_out), np.float32)
-        for a, ph in enumerate(taps):
-            for k, (d, wv) in enumerate(ph):
-                off[a, k] = d
-                wgt[a, k] = wv
-        out += [torch.from_numpy(t).to(device) for t in (off, cnt, wgt)]
-    return tuple(out), nd
+    """Row and column compact tables (idx, wgt, idx, wgt) on the device."""
+    tabs = compact_axis_table(h, s, hp, hq, TILE[0], SPAN[0]) + compact_axis_table(
+        w, s, hp, wq, TILE[1], SPAN[1]
+    )
+    return tuple(torch.from_numpy(t).to(device) for t in tabs)
 
 
 def upscale_planes_kernel(
     x01: torch.Tensor, cfg, hq: int, wq: int, hp: int
 ) -> torch.Tensor:
     """Wrapper: the plain version for a CPU tensor, the CUDA kernel for a
-    CUDA tensor (contiguous [B, h, w] f32)."""
+    CUDA tensor (contiguous [B, h, w] f32; scale 2-4, wq a multiple of 4)."""
     if x01.device.type == "cpu":
         return upscale_planes(x01, cfg, hq, wq, hp)
     require_cuda_tensor(x01, "x01", torch.float32, 3)
     s = cfg.scale
     nimg, h, w = x01.shape
-    if hq > 8 * 65535 or nimg * s * s > 65535:
-        raise ValueError(f"grid too large: hq={hq}, images*planes={nimg * s * s}")
-    tabs, nd = _device_tables(h, w, s, hp, hq, wq, x01.device)
+    if s not in (2, 3, 4) or wq % 4 or h * w >= 2**31:
+        raise ValueError(
+            f"the CUDA upscale kernel is compiled for scales 2-4 and plane widths "
+            f"that are multiples of 4, got scale {s}, wq {wq}, image {h} x {w}"
+        )
+    tabs = _device_tables(h, w, s, hp, hq, wq, x01.device)
     out = torch.empty((nimg, s * s, hq, wq), dtype=torch.float32, device=x01.device)
     launch(
         "upscale_planes", "ocvk_upscale_planes", x01.device,
         x01.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tabs),
-        nimg, h, w, s, hq, wq, nd,
+        nimg, h, w, s, hq, wq, *TILE, *SPAN,
     )
     return out

@@ -1,0 +1,160 @@
+"""PyTorch port: the host-side tables the Hopper forms of the upscale and
+apply kernels read, on the CPU. The compact 2-tap upscale table must
+reproduce the plain version bit for bit (which itself stays within 1 ULP of
+the JAX twin); the padded filter bank must equal ``phase_rows`` on its live
+part and be built once per bank."""
+
+import gc
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from oclcomputervision_tpu.ops import raisr as jax_raisr
+from oclcomputervision_tpu.utils.config import RaisrConfig
+from oclcomputervision_tpu_torch.kernels import raisr as kraisr
+from oclcomputervision_tpu_torch.kernels import upscale as kupscale
+from oclcomputervision_tpu_torch.ops import raisr as port
+
+torch.set_num_threads(2)
+
+SCALES = [2, 3, 4]
+# smaller than one kernel tile, not a multiple of it, one pixel, one row
+SIZES = [(20, 30), (100, 75), (1, 1), (2, 300)]
+
+
+def _tables(h, w, cfg):
+    geo = port.plane_geometry(h, w, cfg)
+    rows = kupscale.compact_axis_table(
+        h, cfg.scale, geo.hp, geo.hq, kupscale.TILE[0], kupscale.SPAN[0])
+    cols = kupscale.compact_axis_table(
+        w, cfg.scale, geo.hp, geo.wq, kupscale.TILE[1], kupscale.SPAN[1])
+    return geo, rows, cols
+
+
+def _upscale_from_tables(x, s, rows, cols):
+    """The kernel's arithmetic in numpy f32: two separately rounded products
+    and one sum per pass."""
+    (ri, rw), (ci, cw) = rows, cols
+    out = []
+    for a in range(s):
+        v = rw[0, a][:, None] * x[:, ri[0, a], :] + rw[1, a][:, None] * x[:, ri[1, a], :]
+        for b in range(s):
+            out.append(cw[0, b] * v[:, :, ci[0, b]] + cw[1, b] * v[:, :, ci[1, b]])
+    return np.stack(out, axis=1)
+
+
+@pytest.mark.parametrize("s", SCALES)
+@pytest.mark.parametrize("h,w", SIZES)
+def test_compact_upscale_table_equals_plain(s, h, w):
+    cfg = RaisrConfig(scale=s)
+    geo, rows, cols = _tables(h, w, cfg)
+    x = np.random.default_rng(s * 1000 + h).random((2, h, w), np.float32)
+    want = kupscale.upscale_planes(torch.from_numpy(x), cfg, geo.hq, geo.wq, geo.hp)
+    got = _upscale_from_tables(x, s, rows, cols)
+    assert got.dtype == np.float32
+    # the whole plane, halo and padding columns included, bit for bit
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("s", SCALES)
+def test_compact_upscale_table_layout(s):
+    cfg = RaisrConfig(scale=s)
+    for h, w in SIZES + [(1024, 1024)]:
+        geo, rows, cols = _tables(h, w, cfg)
+        for (idx, wgt), n_in, n_out, tile, span in (
+            (rows, h, geo.hq, kupscale.TILE[0], kupscale.SPAN[0]),
+            (cols, w, geo.wq, kupscale.TILE[1], kupscale.SPAN[1]),
+        ):
+            assert idx.shape == wgt.shape == (2, s, n_out)
+            assert idx.dtype == np.int32 and wgt.dtype == np.float32
+            assert idx.min() >= 0 and idx.max() <= n_in - 1
+            # what the kernel's staging relies on
+            assert (np.diff(idx, axis=2) >= 0).all() and (idx[0] <= idx[1]).all()
+            assert (wgt >= 0).all() and (wgt[0] > 0).all()
+            np.testing.assert_allclose(wgt.sum(0), 1.0, atol=1e-6)
+            for i0 in range(0, n_out, tile):
+                i1 = min(i0 + tile, n_out) - 1
+                assert idx[1][:, i1].max() - idx[0][:, i0].min() < span
+
+
+def test_compact_upscale_table_refuses_a_tile_it_cannot_stage():
+    with pytest.raises(ValueError, match="reaches"):
+        kupscale.compact_axis_table(100, 2, 3, 136, 16, 8)
+
+
+@pytest.mark.parametrize("s", SCALES)
+def test_plain_upscale_still_within_one_ulp_of_jax_on_small_tiles(s):
+    # the sub-tile geometry the kernel is checked at on the card
+    cfg = RaisrConfig(scale=s)
+    h, w = 20, 30
+    geo = port.plane_geometry(h, w, cfg)
+    x = np.random.default_rng(s).random((1, h, w), np.float32)
+    want = np.asarray(jax_raisr.upscale_planes(
+        jnp.asarray(x), cfg, geo.h2p, geo.w2p, geo.hq, geo.wq, geo.hp))
+    got = kupscale.upscale_planes(torch.from_numpy(x), cfg, geo.hq, geo.wq, geo.hp)
+    assert np.abs(got.numpy() - want).max() <= 1.2e-7
+
+
+def _filters(cfg, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        (rng.standard_normal((cfg.num_filters, 11, 11)) * 0.05).astype(np.float32))
+
+
+@pytest.mark.parametrize("s", SCALES)
+def test_bank_layout(s):
+    cfg = RaisrConfig(scale=s)
+    filters = _filters(cfg, s)
+    bank, stride = kraisr._bank_rows(filters, cfg)
+    live = kraisr.phase_rows(filters, cfg)
+    assert stride == kraisr.BANK_ROW_STRIDE == 122
+    assert (stride // 2) % 2 == 1  # an odd count of 32-bit words per row
+    assert bank.dtype == torch.bfloat16 and bank.is_contiguous()
+    assert tuple(bank.shape) == (s * s, 216, stride)
+    assert tuple(live.shape) == (s * s, 216, 121)
+    assert torch.equal(bank[..., :121], live)
+    assert (bank[..., 121:] == 0).all()
+    # row [t, k] is filter k * s*s + t
+    flat = filters.reshape(-1, 121).to(torch.bfloat16)
+    assert torch.equal(bank[1, 5, :121], flat[5 * s * s + 1])
+
+
+def test_bank_is_built_once_per_bank():
+    cfg = RaisrConfig()
+    filters = _filters(cfg)
+    bank, _ = kraisr._bank_rows(filters, cfg)
+    again, _ = kraisr._bank_rows(filters, cfg)
+    assert again is bank
+    # an equal bank in another tensor is another bank
+    other, _ = kraisr._bank_rows(filters.clone(), cfg)
+    assert other is not bank and torch.equal(other, bank)
+
+
+def test_bank_is_rebuilt_after_an_in_place_change():
+    cfg = RaisrConfig()
+    filters = _filters(cfg, 1)
+    bank, _ = kraisr._bank_rows(filters, cfg)
+    filters.mul_(2.0)
+    rebuilt, _ = kraisr._bank_rows(filters, cfg)
+    assert rebuilt is not bank
+    assert torch.equal(rebuilt[..., :121], kraisr.phase_rows(filters, cfg))
+    assert kraisr._bank_rows(filters, cfg)[0] is rebuilt
+
+
+def test_bank_of_a_freed_tensor_is_not_reused():
+    # a new tensor may land on the freed one's address with the same version
+    cfg = RaisrConfig()
+    filters = _filters(cfg, 2)
+    key_ptr = filters.data_ptr()
+    bank, _ = kraisr._bank_rows(filters, cfg)
+    del filters
+    gc.collect()
+    for seed in range(3, 8):
+        fresh = _filters(cfg, seed)
+        got, _ = kraisr._bank_rows(fresh, cfg)
+        assert torch.equal(got[..., :121], kraisr.phase_rows(fresh, cfg))
+        if fresh.data_ptr() == key_ptr:
+            assert got is not bank
+    assert len(kraisr._BANKS) <= kraisr._BANKS_KEPT
