@@ -12,10 +12,14 @@ failure raises, and the script exits non-zero without the result line):
 2. build the hand-written kernels from ``kernels/csrc`` with nvcc;
 3. each RAISR kernel against its plain PyTorch version on the card, at the
    bench geometry (1024x1024 LR -> 2048x2048 HR, x2) with a batch of 2, and
-   with the x3 and x4 banks on one 256x256 image; then the upscale and apply
+   with the x3 and x4 banks on one 256x256 image; the hash on uniformly
+   random, ramp and constant content at the bench geometry (batch of 2; the
+   constant image must give bucket 0 wherever the hash window lies inside
+   it); then the upscale, hash and apply
    kernels at x2, x3 and x4 on geometries their tiles do not divide (LR
    100x75; 37x100 planes in 45x108 of LR 13x21, which no image gives) or
-   that are smaller than one tile (20x30), the upscale over the
+   that are smaller than one tile (20x30), with the count of differing hash
+   buckets printed for every case, the upscale over the
    whole plane (halo and padding columns included), the apply with three
    channels over one bucket map and with bucket maps that are the hash's
    own, one bucket everywhere, uniformly random, and random with entries -1
@@ -29,7 +33,8 @@ failure raises, and the script exits non-zero without the result line):
    equal: the exact search unseeded (SAD and SSD; 2 noisy VGA pairs, a
    3x101x77 batch, the 9/3 and 11/5 geometries) and seeded (seeds in +-6,
    +-29 and one that saturates the bound 32, whose RuntimeWarning is
-   expected; both seed modes; no clamp), the fast iteration unseeded and
+   expected; both seed modes; no clamp; +-200 on 2 % of the pixels with no
+   bound, beyond any staged window), the fast iteration unseeded and
    seeded (residual and per-round gather forms);
 4. RAISR end to end through ``RaisrModel.load(...).upsample``: a
    16x1024x1024 uint8 batch (each RAISR kernel's launch count must rise
@@ -60,8 +65,9 @@ failure raises, and the script exits non-zero without the result line):
    kernel and the idle share), and at the batch's shapes each kernel's own
    device time (torch.profiler), its wrapper call's and its plain version's
    time (CUDA events), for the upscale the time of F.interpolate
-   (align_corners=True), checked to give the same values, and for the apply
-   its time on uniformly random buckets beside the hash's own;
+   (align_corners=True), checked to give the same values, for the hash its
+   time on uniformly random luma and for the apply its time on uniformly
+   random buckets beside the bench images' own;
 6b. histeq timing, the same way: input MP/s of both ops through the
    kernels and the plain versions, their profiles, and each kernel's,
    plain version's and single PyTorch call's time at the bench shapes
@@ -70,8 +76,9 @@ failure raises, and the script exits non-zero without the result line):
    pairs and fast on 16, finest-level MP/s of the batched exact pyramid on
    4 pairs, wall ms of the single-pair exact and hybrid pyramids, each
    through the kernels and the plain versions, the pyramids' profiles, the
-   time of ``median_filter_flow`` and ``upscale_mv``, and each kernel's own
-   time at the 4-pair finest level beside its bound.
+   time of ``median_filter_flow`` and ``upscale_mv``, each kernel's own
+   time at the 4-pair finest level beside its bound, and the exact search
+   kernel unseeded on 8 pairs beside its own bound.
 
 Prints the per-kernel JSON line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -259,6 +266,7 @@ def kernel_vs_plain(model, imgs, device):
     hb_k = kr.hash_planes_kernel(up_k, cfg, geo.hp, geo.h2p, geo.w2p)
     hb_p = kr.hash_planes(up_k, cfg, geo.hp, geo.h2p, geo.w2p)
     agree = (hb_k == hb_p).float().mean().item()
+    ndiff = (hb_k != hb_p).sum().item()
     hash_err = (hb_k - hb_p).abs().max().item()
 
     # two channels stacked over one bucket map, as the colour path runs it
@@ -272,7 +280,7 @@ def kernel_vs_plain(model, imgs, device):
     print(f"{tag} upscale_planes: max|kernel - plain| = {up_err:.3e} "
           f"(tol {UPSCALE_TOL:.1e})")
     print(f"{tag} raisr_hash: bucket agreement = {agree:.7f} "
-          f"(min {HASH_AGREEMENT}), max|diff| = {hash_err}")
+          f"(min {HASH_AGREEMENT}), {ndiff} pixels differ, max|diff| = {hash_err}")
     print(f"{tag} raisr_apply: max|kernel - plain| = {ap_err:.3e} (tol {APPLY_TOL:.1e})")
     if not up_err <= UPSCALE_TOL:
         raise AssertionError(f"upscale kernel off by {up_err}")
@@ -282,9 +290,75 @@ def kernel_vs_plain(model, imgs, device):
         raise AssertionError(f"apply kernel off by {ap_err}")
     return {
         "upscale_planes": {"max_abs_err": up_err},
-        "raisr_hash": {"max_abs_err": hash_err, "agreement": agree},
+        "raisr_hash": {"max_abs_err": hash_err, "agreement": agree, "differing": ndiff},
         "raisr_apply": {"max_abs_err": ap_err},
     }
+
+
+def hash_agreement(tag, cfg, planes, hp, h2p, w2p):
+    """The hash kernel against its plain version on these planes: prints the
+    agreement and the count of differing pixels, raises below
+    HASH_AGREEMENT; returns (agreement, differing, kernel's buckets)."""
+    import torch
+
+    from oclcomputervision_tpu_torch.kernels import raisr as kr
+
+    got = kr.hash_planes_kernel(planes, cfg, hp, h2p, w2p)
+    want = kr.hash_planes(planes, cfg, hp, h2p, w2p)
+    torch.cuda.synchronize()
+    agree = (got == want).float().mean().item()
+    ndiff = (got != want).sum().item()
+    print(f"x{cfg.scale} {tag} -> buckets {tuple(got.shape)}: raisr_hash agreement "
+          f"{agree:.7f} (min {HASH_AGREEMENT}), {ndiff} pixels differ")
+    if not agree >= HASH_AGREEMENT:
+        raise AssertionError(f"hash kernel agreement {agree} on {tag}")
+    return agree, ndiff, got
+
+
+def hash_contents(model, rng, device):
+    """Phase 3, the hash on three kinds of content at the bench geometry's
+    batch of 2 (x2, 1024^2): uniform random luma in [0, 1), whose strong
+    gradients put many pixels near a quantizer boundary; a linear ramp,
+    fully coherent at one angle; and a constant image (planes equal to 0.3
+    over the image, 0 in the halo), where every pixel whose Sobel-and-blur
+    window lies inside the image has a zero tensor and must give bucket 0."""
+    import torch
+
+    from oclcomputervision_tpu_torch.kernels import upscale as ku
+    from oclcomputervision_tpu_torch.ops.raisr import plane_geometry
+
+    cfg = model.cfg
+    s, n = cfg.scale, 2
+    geo = plane_geometry(LR, LR, cfg)
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 31)))
+    yy = torch.arange(LR, device=device, dtype=torch.float32)[:, None]
+    xx = torch.arange(LR, device=device, dtype=torch.float32)[None, :]
+    lr = {"random": torch.rand((n, LR, LR), generator=gen, device=device),
+          "ramp": (yy * 3e-4 + xx * 5e-4).expand(n, LR, LR).contiguous()}
+    worst = 1.0
+    for name, x01 in lr.items():
+        up = ku.upscale_planes_kernel(x01, cfg, geo.hq, geo.wq, geo.hp)
+        agree, _, _ = hash_agreement(f"{name} {tuple(x01.shape)}", cfg, up, geo.hp, geo.h2p,
+                                     geo.w2p)
+        worst = min(worst, agree)
+    const = torch.zeros((n, s * s, geo.hq, geo.wq), device=device)
+    const[..., geo.hp : geo.hp + geo.h2p, geo.hp : geo.hp + geo.w2p] = 0.3
+    agree, _, got = hash_agreement(f"constant {(n, LR, LR)}", cfg, const, geo.hp, geo.h2p, geo.w2p)
+    worst = min(worst, agree)
+    # HR row s*i + a of plane a*s + b is inside when the blur (4) and Sobel (1)
+    # reach stays in the s*h2p x s*w2p image; likewise for columns
+    g = cfg.gauss_len // 2 + 1
+    hr_r = s * torch.arange(geo.h2p, device=device)[None, :] + torch.arange(s, device=device)[:, None]
+    hr_c = s * torch.arange(geo.w2p, device=device)[None, :] + torch.arange(s, device=device)[:, None]
+    ok_r = (hr_r >= g) & (hr_r + g < s * geo.h2p)  # [a, i]
+    ok_c = (hr_c >= g) & (hr_c + g < s * geo.w2p)  # [b, j]
+    inside = (ok_r[:, None, :, None] & ok_c[None, :, None, :]).reshape(s * s, geo.h2p, geo.w2p)
+    nonzero = (got[:, inside] != 0).sum().item()
+    print(f"x{s} constant: {nonzero} of {n * inside.sum().item()} pixels inside the image "
+          f"have a bucket other than 0")
+    if nonzero:
+        raise AssertionError("a constant image gave buckets other than 0 inside the image")
+    return worst
 
 
 # LR batches for tiling_cases, each with the plane geometry (h2p, w2p, hq, wq)
@@ -294,10 +368,10 @@ TILING_SHAPES = (((2, 100, 75), None), ((1, 20, 30), None), ((1, 13, 21), (37, 1
 
 
 def tiling_cases(model, rng, device):
-    """Phase 3, the cases a tiled kernel can get wrong: the upscale and apply
-    kernels against their plain versions on geometries that the kernels'
-    tiles do not divide or that are smaller than one tile, the apply with
-    three channels over one bucket map and on four kinds of bucket map."""
+    """Phase 3, the cases a tiled kernel can get wrong: the upscale, hash and
+    apply kernels against their plain versions on geometries that the
+    kernels' tiles do not divide or that are smaller than one tile, the apply
+    with three channels over one bucket map and on four kinds of bucket map."""
     import torch
 
     from oclcomputervision_tpu_torch.kernels import raisr as kr
@@ -307,6 +381,7 @@ def tiling_cases(model, rng, device):
     cfg = model.cfg
     nbucket = cfg.num_angle * cfg.num_strength * cfg.num_coherence
     up_worst = ap_worst = 0.0
+    hash_worst = 1.0
     for (n, h, w), planes_geo in TILING_SHAPES:
         x01 = torch.from_numpy(rng.random((n, h, w), dtype="float32")).to(device)
         geo = plane_geometry(h, w, cfg)
@@ -323,8 +398,11 @@ def tiling_cases(model, rng, device):
         holes[..., 3::11, 1::3] = nbucket
         maps = {"one bucket": torch.full_like(rand, 17), "random": rand,
                 "random with -1 and 216": holes}
+        hash_agree, _, hb = hash_agreement(f"LR {(n, h, w)} planes {tuple(up_k.shape)}", cfg,
+                                           up_k, geo.hp, h2p, w2p)
+        hash_worst = min(hash_worst, hash_agree)
         if planes_geo is None:
-            maps["hash"] = kr.hash_planes_kernel(up_k, cfg, geo.hp, h2p, w2p)
+            maps["hash"] = hb
         # three channels stacked over one bucket map, as the RGB path runs it
         planes = torch.cat([up_k, 0.5 * up_k, 0.25 * up_k]).contiguous()
         ap_errs = {}
@@ -349,7 +427,7 @@ def tiling_cases(model, rng, device):
         raise AssertionError(f"upscale kernel off by {up_worst}")
     if not ap_worst <= APPLY_TOL:
         raise AssertionError(f"apply kernel off by {ap_worst}")
-    return {"upscale_planes": up_worst, "raisr_apply": ap_worst}
+    return {"upscale_planes": up_worst, "raisr_apply": ap_worst, "raisr_hash": hash_worst}
 
 
 def bank_passes(buckets) -> float:
@@ -538,6 +616,15 @@ def timing(model, batch, out_kernel, card, device):
     rand_ms = kernel_ms("raisr_apply", lambda: kr.apply_filters_planes_kernel(
         up, rand, model.filters, cfg))
     times["raisr_apply"]["random_buckets_ms"] = rand_ms
+    # the hash on uniformly random luma beside the bench images
+    x_rand = torch.rand(x01.shape, generator=gen, device=device)
+    up_rand = ku.upscale_planes_kernel(x_rand, cfg, geo.hq, geo.wq, geo.hp)
+    hash_rand_ms = kernel_ms("raisr_hash", lambda: kr.hash_planes_kernel(
+        up_rand, cfg, geo.hp, geo.h2p, geo.w2p))
+    times["raisr_hash"]["random_luma_ms"] = hash_rand_ms
+    print(f"[{card}] raisr_hash at {shape}: {times['raisr_hash']['ms']:.4f} ms on the bench "
+          f"images, {hash_rand_ms:.4f} ms on uniformly random luma")
+    del x_rand, up_rand
     passes = bank_passes(hb[:2]), bank_passes(rand[:2])
     print(f"[{card}] raisr_apply at {shape}: {times['raisr_apply']['ms']:.4f} ms on the "
           f"hash's own buckets ({passes[0]:.4f} shared-memory passes per filter-row load), "
@@ -858,6 +945,8 @@ def me_kernel_vs_plain(rng, device):
     gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 31)))
     odd = torch.randint(0, 256, (2, 3, 101, 77), generator=gen, device=device,
                         dtype=torch.uint8)
+    # 77 columns, not a multiple of 4, and odd[1] ends on the last byte of
+    # its allocation
     inputs = {"vga": (torch.from_numpy(n0).to(device), torch.from_numpy(n1).to(device)),
               "odd": (odd[0], odd[1])}
     fast = ("me_fast_round", "me_fast_median")
@@ -899,6 +988,16 @@ def me_kernel_vs_plain(rng, device):
                 if got.abs().max().item() > (40 if mode == "shipped" else 0) + 32 + sum(
                         om.me_steps(search, patch)):
                     raise AssertionError("the saturating seed's base was not clamped")
+    # far seeds (+-200 on about 2 % of the pixels, +-3 elsewhere) and no
+    # bound: the blocks that hold one cannot stage their frame-1 window and
+    # read frame 1 from device memory, the others stage theirs
+    f0, f1 = inputs["vga"]
+    far = torch.where(torch.from_numpy(rng.random((*f0.shape, 1)) < 0.02).to(device),
+                      seed_of(f0.shape, 200), seed_of(f0.shape, 3))
+    for mode in ("shipped", "fixed"):
+        check(("me_exact",), f"vga seeds +-200 on 2 % of pixels, no bound, {mode}",
+              km.me_exact_kernel(f0, f1, *ME_GEOMETRY, "sad", far, None, mode),
+              km.me_exact(f0, f1, *ME_GEOMETRY, "sad", far, None, mode))
     bad = {k: v for k, v in errs.items() if v != 0.0}
     if bad:
         raise AssertionError(f"motion kernels differ from their plain versions: {bad}")
@@ -1144,8 +1243,11 @@ def me_timing(rng, pyramid_batch, card, device):
               f"{moved / 1e6:.1f} MB), library none")
     t0, t1 = on_card(*noisy_pairs(rng, ME_EXACT_BATCH))
     ms = kernel_ms("me_exact", lambda: km.me_exact_kernel(t0, t1, search, patch))
+    bms, by = bound("me_exact", nbytes(t0, t1, km.me_exact_kernel(t0, t1, search, patch)),
+                    t0.numel())
     print(f"[{card}] me_exact at {tuple(t0.shape)} unseeded: kernel {ms:.4f} ms, "
-          f"{t0.numel() / 1e6 / ms * 1e3:.2f} MP/s")
+          f"{t0.numel() / 1e6 / ms * 1e3:.2f} MP/s, bound {bms:.4f} ms ({by})")
+    times["me_exact"].update(unseeded_ms=ms, unseeded_bound_ms=bms)
     return times, e2e
 
 
@@ -1183,15 +1285,20 @@ def main() -> int:
 
     # phase 3: kernels against their plain versions (x3 and x4 at a small size)
     errs = kernel_vs_plain(model, lenna_batch(rng, 2, LR), device)
-    worst = [tiling_cases(model, rng, device)]
+    hash_agree = [errs["raisr_hash"]["agreement"], hash_contents(model, rng, device)]
+    tiled = [tiling_cases(model, rng, device)]
+    worst = []
     for scale in (3, 4):
         other = RaisrModel.load(asset_path(f"raisr_filters_x{scale}.npz"), device=device)
         small = kernel_vs_plain(other, lenna_batch(rng, 1, 256), device)
-        worst += [{k: v["max_abs_err"] for k, v in small.items()},
-                  tiling_cases(other, rng, device)]
+        hash_agree.append(small["raisr_hash"]["agreement"])
+        worst.append({k: v["max_abs_err"] for k, v in small.items()})
+        tiled.append(tiling_cases(other, rng, device))
     for name in ("upscale_planes", "raisr_apply"):  # the largest over every case
         errs[name]["max_abs_err"] = max(errs[name]["max_abs_err"],
-                                        *(w[name] for w in worst))
+                                        *(w[name] for w in worst + tiled))
+    # the lowest bucket agreement over every case
+    errs["raisr_hash"]["min_agreement"] = min(*hash_agree, *(t["raisr_hash"] for t in tiled))
 
     # phase 3b: the histeq kernels against their plain versions
     batches = histeq_batches(rng, device)

@@ -63,9 +63,8 @@ _SIGNATURES = {
     # x, out, row_idx, row_w, col_idx, col_w,
     # nimg, h, w, s, hq, wq, tile_h, tile_w, span_h, span_w, stream
     "ocvk_upscale_planes": [_VP] * 6 + [_I] * 10 + [_VP],
-    # planes, out, k1, squant, cquant, nimg, s, hp, rows, wq, h2p, w2p,
-    # glen, na, ns, nc, nsq, ncq, stream
-    "ocvk_raisr_hash": [_VP] * 5 + [_I] * 13 + [_VP],
+    # planes, out, params (host struct), nimg, s, hp, rows, wq, h2p, w2p, stream
+    "ocvk_raisr_hash": [_VP] * 3 + [_I] * 7 + [_VP],
     # planes, buckets, bank, out, nimg, nb, s, fl, hp, rows, wq, h2p,
     # w2p, nbucket, row_stride, stream
     "ocvk_raisr_apply": [_VP] * 4 + [_I] * 11 + [_VP],
@@ -78,8 +77,8 @@ _SIGNATURES = {
     # x, m, out, nimg, h, w, nby, nbx, bh, bw, rows_per_block, stream
     "ocvk_blend_blocks": [_VP] * 3 + [_I] * 8 + [_VP],
     # f0, f1, seed, out, steps (host ints), nsteps, nimg, h, w, ps, ssd,
-    # bound, shipped, stream
-    "ocvk_me_exact": [_VP] * 5 + [_I] * 8 + [_VP],
+    # bound, shipped, win_cap, stream
+    "ocvk_me_exact": [_VP] * 5 + [_I] * 9 + [_VP],
     # f0, f1, dy_in, dx_in, dy_out, dx_out, nimg, h, w, ps, step, ssd, stream
     "ocvk_me_fast_round": [_VP] * 6 + [_I] * 6 + [_VP],
     # dy_in, dx_in, dy_out, dx_out, flow, nimg, h, w, stream

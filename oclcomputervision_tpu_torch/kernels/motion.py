@@ -35,6 +35,9 @@ from oclcomputervision_tpu_torch.kernels.histeq import MAX_GRID_YZ
 from oclcomputervision_tpu_torch.oracle.motion import MEDIAN9_EXCHANGES, gaussian2d, me_steps
 
 MAX_STEPS = 16  # csrc/me_exact.cu's kMaxSteps
+ME_BLOCK = (8, 32)  # csrc/me_exact.cu's kBlockY, kBlockX: pixels per block
+ME_ROW_PAD = 8  # csrc/me_exact.cu's kRowPad
+ME_WINDOW_CAP = 32 * 1024  # shared-memory bytes a block's frame-1 window may take
 INT_COSTS = ("sad", "ssd")  # the costs the kernels take
 FLOAT_COSTS = ("wsad_shipped", "wsad")  # exact search only, plain version only
 
@@ -175,6 +178,23 @@ def me_exact(
     return torch.stack(out)
 
 
+def me_window_bytes(steps, patch_size: int, seeded: bool, bound: Optional[int]) -> int:
+    """Shared-memory bytes ``csrc/me_exact.cu`` reserves per block for its
+    frame-1 window: the block's tile grown on each side by
+    ``patch_size // 2 + sum(steps)`` and, for a seed clamped to [-bound,
+    bound], by the bound, in rows padded as the kernel pads them; at most
+    ``ME_WINDOW_CAP``, which is also what a seed without a bound gets. A
+    block whose own window (its seeds' spread) does not fit reads frame 1
+    from device memory instead."""
+    reach = patch_size // 2 + sum(steps)
+    if seeded:
+        if bound is None:
+            return ME_WINDOW_CAP
+        reach += bound
+    rows, cols = ME_BLOCK[0] + 2 * reach, ME_BLOCK[1] + 2 * reach
+    return min(rows * (-(-cols // 4) * 4 + ME_ROW_PAD), ME_WINDOW_CAP)
+
+
 def me_exact_kernel(
     f0: torch.Tensor,
     f1: torch.Tensor,
@@ -211,6 +231,7 @@ def me_exact_kernel(
         (ctypes.c_int * max(len(steps), 1))(*steps), len(steps), b, h, w, patch_size,
         int(costfn == "ssd"), -1 if seed_bound is None else int(seed_bound),
         int(seed is not None and seed_mode == "shipped"),
+        me_window_bytes(steps, patch_size, seed is not None, seed_bound),
     )
     return out
 

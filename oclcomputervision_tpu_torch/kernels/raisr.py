@@ -20,6 +20,7 @@ kernel for a CUDA tensor.
 from __future__ import annotations
 
 import collections
+import ctypes
 import functools
 import math
 import weakref
@@ -133,40 +134,74 @@ def hash_planes(y_planes: torch.Tensor, cfg, hp: int, h2p: int, w2p: int) -> tor
     return ((ai * cfg.num_strength + si) * cfg.num_coherence + ci).to(torch.int32)
 
 
+HASH_TAPS = 9  # csrc/raisr_hash.cu's kTaps: the blur length it is compiled for
+HASH_MAX_QUANT = 4  # csrc/raisr_hash.cu's kMaxQuant
+HASH_SCALES = (2, 3, 4)
+
+
+class HashParams(ctypes.Structure):
+    """The blur taps and quantizers as ``csrc/raisr_hash.cu``'s
+    ``HashParams``, which the kernel takes by value (constant-bank operands)."""
+
+    _fields_ = [
+        ("k1", ctypes.c_float * HASH_TAPS),
+        ("squant", ctypes.c_float * HASH_MAX_QUANT),
+        ("cquant", ctypes.c_float * HASH_MAX_QUANT),
+        ("na", ctypes.c_int),
+        ("ns", ctypes.c_int),
+        ("nc", ctypes.c_int),
+    ]
+
+
 @functools.lru_cache(maxsize=8)
-def _hash_consts(cfg, device):
-    """Blur taps and quantizers as f32 device arrays for the kernel."""
+def hash_params(cfg) -> HashParams:
+    """The kernel's parameters for ``cfg``: f32 taps of ``_blur_k1`` and
+    f32 quantizers padded with NaN, which no value reaches (``x >= NaN`` is
+    false), so the kernel compares against all four. Raises for a blur
+    length other than 9, a scale outside 2-4 or more than 4 quantizers of a
+    kind."""
     from oclcomputervision_tpu_torch.ops.raisr import _blur_k1
 
-    k1 = torch.from_numpy(np.asarray(_blur_k1(cfg), np.float32)).to(device)
-    sq = torch.tensor(cfg.strength_quantizers, dtype=torch.float32, device=device)
-    cq = torch.tensor(cfg.coherence_quantizers, dtype=torch.float32, device=device)
-    return k1, sq, cq
+    if cfg.gauss_len != HASH_TAPS or cfg.scale not in HASH_SCALES:
+        raise ValueError(
+            f"the CUDA hash kernel is compiled for gauss_len {HASH_TAPS} at scales "
+            f"{HASH_SCALES}, got gauss_len {cfg.gauss_len} at scale {cfg.scale}"
+        )
+    sq, cq = cfg.strength_quantizers, cfg.coherence_quantizers
+    if max(len(sq), len(cq)) > HASH_MAX_QUANT:
+        raise ValueError(f"at most {HASH_MAX_QUANT} quantizers of a kind, got {len(sq)}, {len(cq)}")
+    pad = [math.nan] * HASH_MAX_QUANT
+    prm = HashParams()
+    prm.k1[:] = [float(v) for v in np.asarray(_blur_k1(cfg), np.float32)]
+    prm.squant[:] = ([float(np.float32(v)) for v in sq] + pad)[:HASH_MAX_QUANT]
+    prm.cquant[:] = ([float(np.float32(v)) for v in cq] + pad)[:HASH_MAX_QUANT]
+    prm.na, prm.ns, prm.nc = cfg.num_angle, cfg.num_strength, cfg.num_coherence
+    return prm
 
 
 def hash_planes_kernel(
     y_planes: torch.Tensor, cfg, hp: int, h2p: int, w2p: int
 ) -> torch.Tensor:
     """Wrapper: the plain version for a CPU tensor, the CUDA kernel for a
-    CUDA tensor (contiguous [B, s*s, rows, wq] f32)."""
+    CUDA tensor (contiguous [B, s*s, rows, wq] f32; gauss_len 9, scale 2-4)."""
     if y_planes.device.type == "cpu":
         return hash_planes(y_planes, cfg, hp, h2p, w2p)
     require_cuda_tensor(y_planes, "y_planes", torch.float32, 4)
+    prm = hash_params(cfg)
     s = cfg.scale
     g = cfg.gauss_len // 2
     nimg, ss, rows, wq = y_planes.shape
     if ss != s * s or rows < h2p + 2 * hp or wq < w2p + 2 * hp:
         raise ValueError(f"planes {tuple(y_planes.shape)} do not cover the plane "
                          f"geometry h2p={h2p}, w2p={w2p}, hp={hp} at scale {s}")
-    if hp < -(-g // s) + 1 or nimg > 65535:
-        raise ValueError(f"halo {hp} below the hash reach, or {nimg} images")
-    k1, sq, cq = _hash_consts(cfg, y_planes.device)
+    if hp < -(-g // s) + 1 or nimg > 65535 or ss * rows * wq >= 2**31:
+        raise ValueError(f"halo {hp} below the hash reach, or {nimg} images of "
+                         f"{tuple(y_planes.shape[1:])}")
     out = torch.empty((nimg, ss, h2p, w2p), dtype=torch.int32, device=y_planes.device)
     launch(
         "raisr_hash", "ocvk_raisr_hash", y_planes.device,
-        y_planes.data_ptr(), out.data_ptr(), k1.data_ptr(), sq.data_ptr(),
-        cq.data_ptr(), nimg, s, hp, rows, wq, h2p, w2p, cfg.gauss_len,
-        cfg.num_angle, cfg.num_strength, cfg.num_coherence, sq.numel(), cq.numel(),
+        y_planes.data_ptr(), out.data_ptr(), ctypes.addressof(prm), nimg, s, hp, rows, wq,
+        h2p, w2p,
     )
     return out
 

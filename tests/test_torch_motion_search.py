@@ -240,3 +240,19 @@ def test_input_rules(pair):
     # a tensor stays on its device
     out = ops.estimate_motion_vector(torch.from_numpy(f0), torch.from_numpy(f1), 9, 3)
     assert out.device.type == "cpu" and tuple(out.shape) == (H, W, 2)
+
+
+@pytest.mark.parametrize("geometry, seeded, bound, want", [
+    # 32 x 8 pixels grown by 2 + (5 + 2 + 1) on each side, rows padded to 4 + 8 bytes
+    ((15, 5), False, None, (8 + 20) * (32 + 20 + 8)),
+    ((9, 3), False, None, (8 + 10) * (32 + 10 + 2 + 8)),
+    # the seed's clamp adds the bound on each side
+    ((15, 5), True, 32, (8 + 84) * (32 + 84 + 8)),
+    # no bound, or a window above the cap: the cap; blocks whose own
+    # window does not fit read frame 1 from device memory
+    ((15, 5), True, None, kmotion.ME_WINDOW_CAP),
+    ((15, 5), True, 1000, kmotion.ME_WINDOW_CAP),
+])
+def test_exact_kernel_window_from_steps_patch_and_bound(geometry, seeded, bound, want):
+    steps = kmotion.me_steps(*geometry)
+    assert kmotion.me_window_bytes(steps, geometry[1], seeded, bound) == want

@@ -1,9 +1,12 @@
-"""PyTorch port: the host-side tables the Hopper forms of the upscale and
-apply kernels read, on the CPU. The compact 2-tap upscale table must
+"""PyTorch port: the host-side tables the Hopper forms of the upscale, hash
+and apply kernels read, on the CPU. The compact 2-tap upscale table must
 reproduce the plain version bit for bit (which itself stays within 1 ULP of
-the JAX twin); the padded filter bank must equal ``phase_rows`` on its live
-part and be built once per bank."""
+the JAX twin); the hash's parameter struct must carry the plain version's
+taps and quantizers; the padded filter bank must equal ``phase_rows`` on its
+live part and be built once per bank."""
 
+import ctypes
+import dataclasses
 import gc
 
 import jax.numpy as jnp
@@ -158,3 +161,35 @@ def test_bank_of_a_freed_tensor_is_not_reused():
         if fresh.data_ptr() == key_ptr:
             assert got is not bank
     assert len(kraisr._BANKS) <= kraisr._BANKS_KEPT
+
+
+@pytest.mark.parametrize("s", SCALES)
+def test_hash_params_carry_the_plain_versions_taps_and_quantizers(s):
+    cfg = RaisrConfig(scale=s)
+    prm = kraisr.hash_params(cfg)
+    # 9 taps, 4 + 4 quantizers, 3 ints: the layout of csrc/raisr_hash.cu's struct
+    assert ctypes.sizeof(prm) == 4 * (9 + 4 + 4 + 3)
+    assert np.array_equal(np.array(prm.k1, np.float32), port._blur_k1(cfg).astype(np.float32))
+    sq, cq = np.array(prm.squant, np.float32), np.array(prm.cquant, np.float32)
+    assert np.array_equal(sq[:2], np.float32(cfg.strength_quantizers))
+    assert np.array_equal(cq[:2], np.float32(cfg.coherence_quantizers))
+    assert np.isnan(sq[2:]).all() and np.isnan(cq[2:]).all()
+    assert (prm.na, prm.ns, prm.nc) == (cfg.num_angle, cfg.num_strength, cfg.num_coherence)
+    # comparing l1 against all four padded entries, as the kernel does,
+    # gives the plain version's strength index
+    a, b, d = torch.from_numpy(np.random.default_rng(s).random((3, 4096), np.float32) ** 3 * 1e-2)
+    _, si, _ = kraisr._eigen_bucket(a, b, d, cfg)
+    tr = a + d
+    l1 = tr / 2.0 + torch.sqrt(torch.clamp(tr * tr / 4.0 - (a * d - b * b), min=0.0))
+    assert np.array_equal((l1.numpy()[None] >= sq[:, None]).sum(0), si.numpy())
+    assert len(np.unique(si.numpy())) == 3
+
+
+@pytest.mark.parametrize("change", [
+    {"gauss_len": 7}, {"scale": 1}, {"scale": 5},
+    {"strength_quantizers": (1e-5, 1e-4, 1e-3, 1e-2, 1e-1)},
+])
+def test_hash_params_refuse_what_the_kernel_is_not_compiled_for(change):
+    cfg = dataclasses.replace(RaisrConfig(), **change)
+    with pytest.raises(ValueError):
+        kraisr.hash_params(cfg)
