@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU: RAISR x2
-inference, global and local-block histogram equalization, and pyramidal
-block-matching motion estimation.
+inference (and RAISR at configs outside the compiled kernels' domain),
+global and local-block histogram equalization, and pyramidal block-matching
+motion estimation.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -35,11 +36,25 @@ failure raises, and the script exits non-zero without the result line):
    +-29 and one that saturates the bound 32, whose RuntimeWarning is
    expected; both seed modes; no clamp; +-200 on 2 % of the pixels with no
    bound, beyond any staged window), the fast iteration unseeded and
-   seeded (residual and per-round gather forms);
+   seeded (residual and per-round gather forms), and the fast search's
+   round kernel alone at 15/5, 9/3, 11/5, 21/17 and 35/31 on widths that
+   put column w - 2 on either side of its tile and warp edges, on frames
+   narrower and shorter than a tile and a patch, and SSD on frames of 0
+   against 255;
+3d. the RAISR kernels at configs outside the compiled forms' domain (x2
+   with filter_len 7, gauss_len 7 and 5 strength quantizers; x2 with
+   filter_len 13; x5), banks made from the seed: the generic forms
+   (upscale_planes_generic, raisr_hash_generic, raisr_apply_generic)
+   against their plain versions on 4 lenna images of 256^2 and LR 20x30;
 4. RAISR end to end through ``RaisrModel.load(...).upsample``: a
    16x1024x1024 uint8 batch (each RAISR kernel's launch count must rise
-   during it) and one RGB image (lenna 512^2 -> 1024^2, held against the
-   plain path);
+   during it, no generic form's) and one RGB image (lenna 512^2 -> 1024^2,
+   held against the plain path); then blend='ct' on two of the batch's
+   images and a BGRA lenna (alpha from the seed) through the kernels, each
+   held against the plain path;
+4d. one ``RaisrModel(cfg, bank).upsample`` per generic config on 2 lenna
+   images of 256^2: it must launch the generic forms and agree with the
+   plain path;
 4b. histeq end to end through ``ops``: ``histeq_global`` on 256x768x1280,
    ``histeq_local_block(x, 0.5, 0.05, 3.0, (256, 256))`` on 64x768x1280
    with clahe_clip 0 and 2, and ``apply_block_mappings`` on 2x880x1400 with
@@ -68,17 +83,24 @@ failure raises, and the script exits non-zero without the result line):
    (align_corners=True), checked to give the same values, for the hash its
    time on uniformly random luma and for the apply its time on uniformly
    random buckets beside the bench images' own;
+6d. each generic form's time at 4 x 256^2 (the upscale at x5, the hash at
+   filter_len 7 / gauss_len 7, the apply at filter_len 13) beside its bound
+   and plain version (and F.interpolate for the upscale), and every stage's
+   time at each generic config;
 6b. histeq timing, the same way: input MP/s of both ops through the
    kernels and the plain versions, their profiles, and each kernel's,
    plain version's and single PyTorch call's time at the bench shapes
-   (each such call first checked equal to its kernel);
+   (each such call first checked equal to its kernel), each kernel also
+   with L2 flushed before every call (apply_lut's row takes that time: the
+   timing loop leaves part of its 503 MB in the 50 MB L2);
 6c. motion timing: input MP/s of ``estimate_motion_vector`` exact on 8 VGA
    pairs and fast on 16, finest-level MP/s of the batched exact pyramid on
    4 pairs, wall ms of the single-pair exact and hybrid pyramids, each
    through the kernels and the plain versions, the pyramids' profiles, the
    time of ``median_filter_flow`` and ``upscale_mv``, each kernel's own
-   time at the 4-pair finest level beside its bound, and the exact search
-   kernel unseeded on 8 pairs beside its own bound.
+   time at the 4-pair finest level beside its bound (also with L2 flushed
+   before every call), and the exact search kernel unseeded on 8 pairs
+   beside its own bound.
 
 Prints the per-kernel JSON line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -138,6 +160,8 @@ OPS_PER_ELEM = {
     "upscale_planes": 12,  # 2 x 2 taps: 4 products and 4 sums per pass
     "raisr_hash": 150,  # Sobel 22, tensor products 3, 9x9 blur of 3 maps 102, eigen and buckets ~23
     "raisr_apply": 2 * 121,  # one multiply and one add per tap
+    "upscale_planes_generic": 12,
+    # the generic hash and apply: per config, hash_ops(cfg) and 2 fl^2
     "hist256": 1,  # one count per pixel
     "apply_lut": 0,  # a table load per pixel
     "hist_tiles": 1,
@@ -145,10 +169,31 @@ OPS_PER_ELEM = {
     # at 15/5: 9 + 8 + 8 candidates (the centre's cost carries over between
     # rounds) of 25 taps, each a subtract, an absolute value and an add
     "me_exact": 25 * 25 * 3,
-    "me_fast_round": 9 * 25 * 3,  # per launch: 9 candidates of 25 taps
+    # per launch, the box-sum form the function needs: 9 candidates x (2
+    # differences and 2 adds of a vertical running sum, 3 adds of the
+    # horizontal sum at patch 5, 1 compare) = 72, and the state update (the
+    # tap-by-tap form counted 9 x 25 x 3 = 675)
+    "me_fast_round": 75,
     "me_fast_median": 2 * 19 * 2,  # per launch: 2 planes, 19 exchanges of a min and a max
 }
 RAISR_KERNELS = ("upscale_planes", "raisr_hash", "raisr_apply")
+GENERIC_KERNELS = ("upscale_planes_generic", "raisr_hash_generic", "raisr_apply_generic")
+# configs outside the compiled RAISR forms' domain, each with a bank made
+# from the seed: (the fields that differ from RaisrConfig(), the generic
+# forms it must launch)
+GENERIC_CONFIGS = {
+    "x2 filter_len 7, gauss_len 7, 5 strength quantizers": (
+        {"filter_len": 7, "gauss_len": 7, "num_strength": 6,
+         "strength_quantizers": (1e-5, 1e-4, 1e-3, 1e-2, 1e-1)},
+        ("raisr_hash_generic", "raisr_apply_generic")),
+    "x2 filter_len 13": ({"filter_len": 13}, ("raisr_apply_generic",)),
+    "x5": ({"scale": 5}, GENERIC_KERNELS),
+}
+GENERIC_SHAPE = (4, 256, 256)  # LR batch the generic forms are checked and timed at
+# which config each generic form is timed at
+GENERIC_TIMED = {"upscale_planes_generic": "x5",
+                 "raisr_hash_generic": "x2 filter_len 7, gauss_len 7, 5 strength quantizers",
+                 "raisr_apply_generic": "x2 filter_len 13"}
 GLOBAL_KERNELS = ("hist256", "apply_lut")
 LOCAL_KERNELS = ("hist_tiles", "blend_blocks")
 ME_KERNELS = ("me_exact", "me_fast_round", "me_fast_median")
@@ -165,6 +210,20 @@ KERNELS = {
     ),
     "raisr_apply": (
         "oclcomputervision_tpu_torch/kernels/csrc/raisr_apply.cu",
+        "oclcomputervision_tpu/ops/pallas/raisr_pallas.py:385",
+    ),
+    # the generic forms, for configs outside the compiled ones: the same TPU
+    # kernels, which are written for any scale, blur and filter length
+    "upscale_planes_generic": (
+        "oclcomputervision_tpu_torch/kernels/csrc/upscale_planes.cu",
+        "oclcomputervision_tpu/ops/pallas/upscale_pallas.py:109",
+    ),
+    "raisr_hash_generic": (
+        "oclcomputervision_tpu_torch/kernels/csrc/raisr_hash_generic.cu",
+        "oclcomputervision_tpu/ops/pallas/raisr_pallas.py:826",
+    ),
+    "raisr_apply_generic": (
+        "oclcomputervision_tpu_torch/kernels/csrc/raisr_apply_generic.cu",
         "oclcomputervision_tpu/ops/pallas/raisr_pallas.py:385",
     ),
     "hist256": (
@@ -201,26 +260,52 @@ KERNELS = {
 }
 
 
-def bound(name: str, moved: int, elems: int):
+def bound(name: str, moved: int, elems: int, ops: int | None = None):
     """(least ms, "bytes" or "operations") for moving ``moved`` bytes once
-    and doing OPS_PER_ELEM[name] operations on each of ``elems`` elements."""
+    and doing ``ops`` (default OPS_PER_ELEM[name]) operations on each of
+    ``elems`` elements."""
     by_bytes = moved / HBM_BYTES_PER_S * 1e3
-    by_ops = OPS_PER_ELEM[name] * elems / F32_OPS_PER_S * 1e3
+    by_ops = (OPS_PER_ELEM[name] if ops is None else ops) * elems / F32_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def kernel_ms(name: str, fn) -> float:
+L2_FLUSH_BYTES = 256 << 20  # written before each call of a cold-L2 timing: 5x the 50 MB L2
+
+
+def kernel_ms(name: str, fn, cold_l2: bool = False) -> float:
     """Device ms per call of kernel ``name``'s own launches in ``fn()``, from
     torch.profiler over 5 calls after one warm-up. Unlike a CUDA-event window
     around the call, it leaves out the wrapper's host work (allocation, the
-    ctypes call), which a kernel of tens of microseconds does not hide."""
+    ctypes call), which a kernel of tens of microseconds does not hide.
+    ``cold_l2``: a 256 MB buffer is written before each call, so the kernel
+    finds none of its inputs in L2, and meets the buffer's dirty lines there
+    as its own last writes leave theirs behind."""
+    import torch
+
     from oclcomputervision_tpu_torch.utils import device_profile
 
-    per_kernel, _ = device_profile(fn)
+    if cold_l2:
+        flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+
+        def call():
+            flush.fill_(1.0)
+            return fn()
+    else:
+        call = fn
+    per_kernel, _ = device_profile(call)
     hits = [ms for k, ms in per_kernel.items() if f"{name}_kernel" in k]
     if not hits:
         raise AssertionError(f"the profiler saw no {name} kernel in {sorted(per_kernel)}")
     return sum(hits)
+
+
+def hash_ops(cfg) -> int:
+    """Operations per HR pixel of the hash at ``cfg``: Sobel 22, the tensor
+    products 3, two blur passes of 3 maps (gauss_len products and
+    gauss_len - 1 sums each), the eigen analysis 19 and one compare per
+    quantizer (150 at the shipped config, OPS_PER_ELEM["raisr_hash"])."""
+    return (25 + 6 * (2 * cfg.gauss_len - 1) + 19 + len(cfg.strength_quantizers)
+            + len(cfg.coherence_quantizers))
 
 
 def nbytes(*tensors) -> int:
@@ -449,11 +534,141 @@ def bank_passes(buckets) -> float:
     return per_bank.max(dim=1).values.float().mean().item()
 
 
-def main_path(model, batch, rgb, device):
-    """Phase 4: the slice through the model, counting kernel launches."""
+def generic_models(rng, device):
+    """A RaisrModel per GENERIC_CONFIGS entry, its bank made from the seed:
+    the centre tap near 1 and small taps around it, as a trained bank."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from oclcomputervision_tpu_torch.models.raisr import RaisrModel
+    from oclcomputervision_tpu_torch.utils.config import RaisrConfig
+
+    models = {}
+    for name, (change, _) in GENERIC_CONFIGS.items():
+        cfg = dataclasses.replace(RaisrConfig(), **change)
+        fl = cfg.filter_len
+        bank = rng.normal(0.0, 0.02, (cfg.num_filters, fl, fl)).astype(np.float32)
+        bank[:, fl // 2, fl // 2] += 1.0
+        models[name] = RaisrModel(cfg, torch.from_numpy(bank).to(device))
+    return models
+
+
+def generic_vs_plain(models, rng, device):
+    """Phase 3d: the RAISR kernels at configs outside the compiled forms'
+    domain against their plain versions, on lenna batches of GENERIC_SHAPE
+    and random LR 20 x 30 (smaller than a tile): the upscale over the whole
+    plane, the hash's agreement, the apply on the hash's buckets and on
+    random ones with entries -1 and past the last bucket (which must give
+    0). Each config's launches must go to the forms GENERIC_CONFIGS names."""
     import torch
 
     from oclcomputervision_tpu_torch.kernels import _build
+    from oclcomputervision_tpu_torch.kernels import raisr as kr
+    from oclcomputervision_tpu_torch.kernels import upscale as ku
+    from oclcomputervision_tpu_torch.ops.raisr import plane_geometry
+
+    up_err = {k: 0.0 for k in ("upscale_planes", "upscale_planes_generic")}
+    ap_err = hash_err = 0.0
+    agree, differing = 1.0, 0
+    for name, model in models.items():
+        cfg = model.cfg
+        nbucket = cfg.num_angle * cfg.num_strength * cfg.num_coherence
+        want = GENERIC_CONFIGS[name][1]
+        inputs = {"lenna": torch.from_numpy(lenna_batch(rng, *GENERIC_SHAPE)).to(device).float()
+                  / torch.tensor(255.0, device=device),
+                  "random": torch.from_numpy(rng.random((1, 20, 30), dtype="float32")).to(device)}
+        for tag, x01 in inputs.items():
+            geo = plane_geometry(x01.shape[1], x01.shape[2], cfg)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            up_k = ku.upscale_planes_kernel(x01, cfg, geo.hq, geo.wq, geo.hp)
+            up_p = ku.upscale_planes(x01, cfg, geo.hq, geo.wq, geo.hp)
+            err = (up_k - up_p).abs().max().item()
+            up_name = ku.upscale_form(cfg.scale)
+            up_err[up_name] = max(up_err[up_name], err)
+            a, nd, hb = hash_agreement(f"{name}, {tag} LR {tuple(x01.shape)}", cfg, up_k, geo.hp,
+                                       geo.h2p, geo.w2p)
+            agree, differing = min(agree, a), differing + nd
+            hb_p = kr.hash_planes(up_k, cfg, geo.hp, geo.h2p, geo.w2p)
+            hash_err = max(hash_err, (hb - hb_p).abs().max().item())
+            holes = torch.randint(0, nbucket, hb.shape, device=device, dtype=torch.int32)
+            holes[..., ::7, ::5] = -1
+            holes[..., 3::11, 1::3] = nbucket
+            planes = torch.cat([up_k, 0.5 * up_k]).contiguous()
+            errs = []
+            for bk in (hb, holes):
+                ap_k = kr.apply_filters_planes_kernel(planes, bk, model.filters, cfg)
+                ap_p = kr.apply_filters_planes(planes, bk, model.filters, cfg)
+                torch.cuda.synchronize()
+                errs.append((ap_k - ap_p).abs().max().item())
+            out_of_range = ((holes < 0) | (holes >= nbucket)).repeat(2, 1, 1, 1)
+            if ap_k[out_of_range].abs().max().item() != 0.0:
+                raise AssertionError(f"{name}: an out-of-range bucket did not give 0")
+            ap_err = max(ap_err, *errs)
+            launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+            print(f"{name}, {tag} LR {tuple(x01.shape)}: upscale max|kernel - plain| {err:.3e}, "
+                  f"apply on the hash's / random buckets {errs[0]:.3e} / {errs[1]:.3e}; "
+                  f"launches {launched}")
+            forms = {ku.upscale_form(cfg.scale), kr.hash_form(cfg),
+                     kr.apply_form(cfg, geo.w2p)}
+            if not set(want) <= forms or set(launched) != forms:
+                raise AssertionError(f"{name} ran {launched}, not the generic forms {want}")
+    if max(up_err.values()) > UPSCALE_TOL or ap_err > APPLY_TOL or agree < HASH_AGREEMENT:
+        raise AssertionError(f"generic forms off their plain versions: upscale {up_err}, "
+                             f"apply {ap_err}, hash agreement {agree}")
+    return {"upscale_planes_generic": {"max_abs_err": up_err["upscale_planes_generic"]},
+            "raisr_hash_generic": {"max_abs_err": hash_err, "agreement": agree,
+                                   "differing": differing},
+            "raisr_apply_generic": {"max_abs_err": ap_err}}
+
+
+def generic_main_path(models, rng, device):
+    """Phase 4d: one ``RaisrModel.upsample`` per generic config on 2 lenna
+    images of 256^2, the launch counts set to 0 just before it and read just
+    after: it must launch the generic forms its config needs, and agree with
+    the plain path on >= 99.9 % of the pixels within one level. Returns the
+    generic forms' launches summed over the three runs."""
+    import torch
+
+    from oclcomputervision_tpu_torch.kernels import _build
+    from oclcomputervision_tpu_torch.ops.raisr import PLAIN_STAGES, _raisr_planes_batched
+
+    total = {k: 0 for k in GENERIC_KERNELS}
+    for name, model in models.items():
+        s = model.cfg.scale
+        x = torch.from_numpy(lenna_batch(rng, 2, 256)).to(device)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out = model.upsample(x)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if tuple(out.shape) != (2, s * 256, s * 256) or out.dtype != torch.uint8:
+            raise AssertionError(f"{name} output {tuple(out.shape)} {out.dtype}")
+        plain = _raisr_planes_batched(x, model.filters, model.cfg, 1, PLAIN_STAGES)
+        within = ((plain.int() - out.int()).abs() <= 1).float().mean().item()
+        print(f"{name} RaisrModel.upsample {tuple(x.shape)} -> {tuple(out.shape)}: launches "
+              f"{launches}; {within:.7f} of pixels within one level of the plain path "
+              f"(min {E2E_WITHIN_ONE})")
+        missing = [k for k in GENERIC_CONFIGS[name][1] if launches.get(k, 0) < 1]
+        if missing or not within >= E2E_WITHIN_ONE:
+            raise AssertionError(f"{name}: launched no {missing}, or {within} within one level")
+        for k in GENERIC_KERNELS:
+            total[k] += launches.get(k, 0)
+    return total
+
+
+def main_path(model, batch, rgb, rng, device):
+    """Phase 4: the slice through the model, counting kernel launches; then
+    ``blend='ct'`` and a BGRA image through the kernels."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from oclcomputervision_tpu_torch.kernels import _build
+    from oclcomputervision_tpu_torch.models.raisr import RaisrModel
     from oclcomputervision_tpu_torch.ops.raisr import PLAIN_STAGES, _raisr_planes_batched
 
     s = model.cfg.scale
@@ -471,6 +686,8 @@ def main_path(model, batch, rgb, device):
     missing = [k for k in RAISR_KERNELS if launches[k] < 1]
     if missing:
         raise AssertionError(f"main path launched no {missing} kernel")
+    if any(launches[k] for k in GENERIC_KERNELS):
+        raise AssertionError(f"the shipped x2 bank launched a generic form: {launches}")
 
     rgb_t = torch.from_numpy(rgb).to(device)
     out_rgb = model.upsample(rgb_t)
@@ -483,6 +700,27 @@ def main_path(model, batch, rgb, device):
           f"values within one level of the plain path (min {E2E_WITHIN_ONE})")
     if not within >= E2E_WITHIN_ONE:
         raise AssertionError(f"RGB kernel and plain paths disagree: {within}")
+
+    # census-transform blending on two gray images, and BGRA lenna (alpha
+    # from the seed), each through the kernels and held against the plain path
+    ct = RaisrModel(dataclasses.replace(model.cfg, blend="ct"), model.filters)
+    alpha = rng.integers(0, 256, rgb.shape[:2], dtype=np.uint8)
+    bgra = torch.from_numpy(np.concatenate([rgb[..., ::-1], alpha[..., None]], -1)).to(device)
+    for tag, mdl, inp, nchan in (("blend='ct'", ct, x[:2], 1), ("BGRA", model, bgra[None], 4)):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        got = mdl.upsample(inp)
+        torch.cuda.synchronize()
+        seen = {k: _build.LAUNCHES[k] for k in RAISR_KERNELS}
+        plain = _raisr_planes_batched(inp, mdl.filters, mdl.cfg, nchan, PLAIN_STAGES)
+        within = ((plain.int() - got.int()).abs() <= 1).float().mean().item()
+        print(f"{tag}: {tuple(inp.shape)} uint8 -> {tuple(got.shape)} uint8, launches {seen}, "
+              f"{within:.7f} of values within one level of the plain path (min {E2E_WITHIN_ONE})")
+        if min(seen.values()) < 1 or not within >= E2E_WITHIN_ONE:
+            raise AssertionError(f"{tag}: kernel and plain paths disagree ({within}) or a "
+                                 f"kernel did not run ({seen})")
+    if bool((got[..., 3] == 0).all()):
+        raise AssertionError("BGRA alpha came out empty")
     return out, launches
 
 
@@ -632,6 +870,75 @@ def timing(model, batch, out_kernel, card, device):
     return times, {"e2e_ms": ms_k, "e2e_plain_ms": ms_p, "idle_share": idle,
                    "mp_out_per_s": mp_out / ms_k * 1e3,
                    "plain_mp_out_per_s": mp_out / ms_p * 1e3}
+
+
+def generic_timing(models, rng, card, device):
+    """Phase 6d: each generic RAISR form's own device time at GENERIC_SHAPE
+    (lenna) at the config GENERIC_TIMED names, beside its bound, its plain
+    version's time and, for the upscale, F.interpolate's (checked to give the
+    same values); then the x5 hash and apply, and the compiled forms' times
+    at the same shape for comparison."""
+    import torch
+
+    from oclcomputervision_tpu_torch.kernels import raisr as kr
+    from oclcomputervision_tpu_torch.kernels import upscale as ku
+    from oclcomputervision_tpu_torch.ops.raisr import plane_geometry
+    from oclcomputervision_tpu_torch.utils import cuda_time_ms
+
+    x = torch.from_numpy(lenna_batch(rng, *GENERIC_SHAPE)).to(device)
+    x01 = x.float() / torch.tensor(255.0, device=device)
+    n, h, w = x01.shape
+    shape = "x".join(str(d) for d in x01.shape)
+
+    def stages(cfg, filters):
+        geo = plane_geometry(h, w, cfg)
+        up = ku.upscale_planes_kernel(x01, cfg, geo.hq, geo.wq, geo.hp)
+        hb = kr.hash_planes_kernel(up, cfg, geo.hp, geo.h2p, geo.w2p)
+        ap = kr.apply_filters_planes_kernel(up, hb, filters, cfg)
+        return {
+            ku.upscale_form(cfg.scale): (
+                lambda: ku.upscale_planes_kernel(x01, cfg, geo.hq, geo.wq, geo.hp),
+                lambda: ku.upscale_planes(x01, cfg, geo.hq, geo.wq, geo.hp),
+                nbytes(x01, up), up.numel(), None),
+            kr.hash_form(cfg): (
+                lambda: kr.hash_planes_kernel(up, cfg, geo.hp, geo.h2p, geo.w2p),
+                lambda: kr.hash_planes(up, cfg, geo.hp, geo.h2p, geo.w2p),
+                nbytes(up, hb), hb.numel(), hash_ops(cfg)),
+            kr.apply_form(cfg, geo.w2p): (
+                lambda: kr.apply_filters_planes_kernel(up, hb, filters, cfg),
+                lambda: kr.apply_filters_planes(up, hb, filters, cfg),
+                nbytes(up, hb, filters, ap), ap.numel(), 2 * cfg.filter_len**2),
+        }, geo, up
+
+    times = {}
+    for name, config in GENERIC_TIMED.items():
+        model = models[config]
+        runs, geo, up = stages(model.cfg, model.filters)
+        fk, fp, moved, elems, ops = runs[name]
+        ms, pms = kernel_ms(name, fk), cuda_time_ms(fp)
+        bms, by = bound(name, moved, elems, ops)
+        lms = None
+        if name == "upscale_planes_generic":
+            s = model.cfg.scale
+            lib = lambda: torch.nn.functional.interpolate(  # noqa: E731
+                x01[:, None], size=(s * h, s * w), mode="bilinear", align_corners=True)
+            inner = up[:, :, geo.hp : geo.hp + h, geo.hp : geo.hp + w]
+            err = (inner.reshape(n, s, s, h, w).permute(0, 3, 1, 4, 2).reshape(n, s * h, s * w)
+                   - lib()[:, 0]).abs().max().item()
+            if not err <= LIBRARY_UPSCALE_TOL:
+                raise AssertionError(f"F.interpolate is not the x{s} upscale's function: {err}")
+            lms = cuda_time_ms(lib)
+        times[name] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                       "library_ms": lms, "config": config}
+        lib_txt = "none" if lms is None else f"{lms:.4f} ms (F.interpolate, HR image)"
+        print(f"[{card}] {name} at {shape}, {config}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}: {moved / 1e6:.1f} MB), library {lib_txt}")
+    # every stage of every generic config, generic or compiled, at this shape
+    for config, model in models.items():
+        runs, _, _ = stages(model.cfg, model.filters)
+        print(f"[{card}] {config} at {shape}: " + ", ".join(
+            f"{name} {kernel_ms(name, run[0]):.4f} ms" for name, run in runs.items()))
+    return times
 
 
 def histeq_batches(rng, device):
@@ -878,10 +1185,17 @@ def histeq_timing(batches, card, device):
     for name, (fk, fp, flib, flib_conv, moved, elems, lib_name) in pairs.items():
         shape = "x".join(str(d) for d in (x if name in GLOBAL_KERNELS else xl).shape)
         ms, call_ms, pms = kernel_ms(name, fk), cuda_time_ms(fk), cuda_time_ms(fp)
+        cold = kernel_ms(name, fk, cold_l2=True)
         lms = cuda_time_ms(flib) if flib else None
         bms, by = bound(name, moved, elems)
         times[name] = {"ms": ms, "call_ms": call_ms, "plain_ms": pms, "bound_ms": bms,
-                       "bound_by": by, "library_ms": lms}
+                       "bound_by": by, "library_ms": lms, "warm_l2_ms": ms, "cold_l2_ms": cold}
+        print(f"[{card}] {name} at {shape}: kernel {ms:.4f} ms with L2 as the last call left "
+              f"it, {cold:.4f} ms with L2 flushed before each call")
+        if name == "apply_lut":
+            # the 503 MB it moves pass through a 50 MB L2 that the timing loop
+            # leaves holding the last call's lines: its row is the cold time
+            times[name]["ms"] = ms = cold
         lib = "none" if lms is None else (
             f"{lms:.4f} ms ({lib_name}; {cuda_time_ms(flib_conv):.4f} ms with the int64 "
             f"index build)")
@@ -988,6 +1302,37 @@ def me_kernel_vs_plain(rng, device):
                 if got.abs().max().item() > (40 if mode == "shipped" else 0) + 32 + sum(
                         om.me_steps(search, patch)):
                     raise AssertionError("the saturating seed's base was not clamped")
+    # the round kernel alone (a median could hide a one-pixel fault), every
+    # round of each geometry from a random state: widths that put column
+    # w - 2 on either side of a tile edge (4 (32 - 2 pm) columns) and of a
+    # warp's (32 - 2 pm), frames narrower and shorter than a tile and than a
+    # patch, random content and frames of 0 against 255 (SSD differences of
+    # 255^2); then the whole iteration, median included. Patches 17 and 31
+    # take the kernel's unpacked SAD path.
+    for search, patch in (ME_GEOMETRY, (9, 3), (11, 5), (21, 17), (35, 31)):
+        ow = 32 - 2 * (patch // 2)
+        shapes = ((2, 40, 4 * ow + 1), (1, 40, 4 * ow + 2), (1, 33, 4 * ow + 3),
+                  (1, 35, 8 * ow + 2), (1, 34, ow + 1), (1, 34, ow + 2), (2, 20, 17),
+                  (1, 7, 3), (1, 3, 2))
+        for n, h, w in shapes:
+            for costfn, content in (("sad", "random"), ("ssd", "random"), ("ssd", "0 and 255")):
+                if content == "random":
+                    f0, f1 = (torch.randint(0, 256, (n, h, w), generator=gen, device=device,
+                                            dtype=torch.uint8) for _ in range(2))
+                else:
+                    f0 = (torch.rand((n, h, w), generator=gen, device=device) < 0.5).to(
+                        torch.uint8) * 255
+                    f1 = 255 - f0
+                dy, dx = (torch.randint(-6, 7, (n, h, w), generator=gen, device=device,
+                                        dtype=torch.int32) for _ in range(2))
+                tag = f"{search}/{patch} {costfn} {content}"
+                for step in om.me_steps(search, patch):
+                    got = torch.stack(km.fast_round_kernel(f0, f1, dy, dx, step, patch, costfn))
+                    want = torch.stack(km.fast_round(f0, f1, dy, dx, step, patch, costfn))
+                    check(("me_fast_round",), f"{tag} one round, step {step}",
+                          got, want.to(torch.int32))
+                check(fast, f"{tag} iteration", km.me_fast_kernel(f0, f1, search, patch, costfn),
+                      km.me_fast(f0, f1, search, patch, costfn))
     # far seeds (+-200 on about 2 % of the pixels, +-3 elsewhere) and no
     # bound: the blocks that hold one cannot stage their frame-1 window and
     # read frame 1 from device memory, the others stage theirs
@@ -1235,11 +1580,16 @@ def me_timing(rng, pyramid_batch, card, device):
         ms, call_ms, pms = kernel_ms(name, fk), cuda_time_ms(fk), cuda_time_ms(fp)
         bms, by = bound(name, moved, elems)
         times[name] = {"ms": ms, "call_ms": call_ms, "plain_ms": pms, "bound_ms": bms,
-                       "bound_by": by, "library_ms": None}
+                       "bound_by": by, "library_ms": None,
+                       "cold_l2_ms": kernel_ms(name, fk, cold_l2=True)}
+        if name == "me_fast_round":
+            # the bound by the tap-by-tap count, which earlier records give
+            times[name]["tap_count_bound_ms"] = 9 * 25 * 3 * elems / F32_OPS_PER_S * 1e3
         what = (f"seeded, bound {sb}" if name == "me_exact" else
                 f"{n} launches per call; whole call and plain: the {n}-round iteration")
         print(f"[{card}] {name} at {shape} ({what}): kernel {ms:.4f} ms (whole call "
-              f"{call_ms:.4f} ms), plain {pms:.4f} ms, bound {bms:.4f} ms ({by}: "
+              f"{call_ms:.4f} ms; {times[name]['cold_l2_ms']:.4f} ms with L2 flushed before "
+              f"each call), plain {pms:.4f} ms, bound {bms:.4f} ms ({by}: "
               f"{moved / 1e6:.1f} MB), library none")
     t0, t1 = on_card(*noisy_pairs(rng, ME_EXACT_BATCH))
     ms = kernel_ms("me_exact", lambda: km.me_exact_kernel(t0, t1, search, patch))
@@ -1300,6 +1650,10 @@ def main() -> int:
     # the lowest bucket agreement over every case
     errs["raisr_hash"]["min_agreement"] = min(*hash_agree, *(t["raisr_hash"] for t in tiled))
 
+    # phase 3d: the generic RAISR forms against their plain versions
+    generic = generic_models(rng, device)
+    errs.update(generic_vs_plain(generic, rng, device))
+
     # phase 3b: the histeq kernels against their plain versions
     batches = histeq_batches(rng, device)
     errs.update(histeq_kernel_vs_plain(batches, rng, device))
@@ -1309,7 +1663,10 @@ def main() -> int:
 
     # phase 4: RAISR end to end
     batch = lenna_batch(rng, BATCH, LR)
-    out, launches = main_path(model, batch, load_image("lenna.png"), device)
+    out, launches = main_path(model, batch, load_image("lenna.png"), rng, device)
+
+    # phase 4d: a model per generic config end to end
+    launches.update(generic_main_path(generic, rng, device))
 
     # phase 4b: histeq end to end
     launches.update(histeq_main_path(batches, rng, device))
@@ -1324,6 +1681,10 @@ def main() -> int:
     # phase 6: RAISR timing
     times, e2e = timing(model, batch, out, card, device)
     del out
+
+    # phase 6d: the generic forms' timing
+    times.update(generic_timing(generic, rng, card, device))
+    del generic
 
     # phase 6b: histeq timing
     histeq_times, histeq_e2e = histeq_timing(batches, card, device)

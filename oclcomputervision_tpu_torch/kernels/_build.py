@@ -47,6 +47,10 @@ LAUNCHES = {
     "upscale_planes": 0,
     "raisr_hash": 0,
     "raisr_apply": 0,
+    # the RAISR kernels' generic forms, for configs outside the compiled ones
+    "upscale_planes_generic": 0,
+    "raisr_hash_generic": 0,
+    "raisr_apply_generic": 0,
     "hist256": 0,
     "apply_lut": 0,
     "hist_tiles": 0,
@@ -65,9 +69,13 @@ _SIGNATURES = {
     "ocvk_upscale_planes": [_VP] * 6 + [_I] * 10 + [_VP],
     # planes, out, params (host struct), nimg, s, hp, rows, wq, h2p, w2p, stream
     "ocvk_raisr_hash": [_VP] * 3 + [_I] * 7 + [_VP],
+    # planes, out, params (device array), nimg, s, gl, nsq, ncq, na, ns, nc,
+    # hp, rows, wq, h2p, w2p, stream
+    "ocvk_raisr_hash_generic": [_VP] * 3 + [_I] * 13 + [_VP],
     # planes, buckets, bank, out, nimg, nb, s, fl, hp, rows, wq, h2p,
     # w2p, nbucket, row_stride, stream
     "ocvk_raisr_apply": [_VP] * 4 + [_I] * 11 + [_VP],
+    "ocvk_raisr_apply_generic": [_VP] * 4 + [_I] * 11 + [_VP],
     # x, out, nimg, n, stream
     "ocvk_hist256": [_VP] * 2 + [_I] * 2 + [_VP],
     # x, luts, out, nimg, n, stream

@@ -27,7 +27,10 @@ import torch
 from oclcomputervision_tpu_torch.kernels._build import launch, require_cuda_tensor
 from oclcomputervision_tpu_torch.kernels.histeq import MAX_GRID_YZ, hist256
 
-BLOCK_PIXELS = 16384  # pixels one CUDA block takes of a tile, at most
+BLOCK_PIXELS = 16384  # pixels one CUDA block of hist_tiles takes of a tile, at most
+# pixels one CUDA block of blend_blocks takes of a padded tile, at most: it
+# stages a 32 KB table first
+BLEND_BLOCK_PIXELS = 32768
 
 
 def _check_tile(shape, tile) -> None:
@@ -51,8 +54,8 @@ def _check_blend_geometry(h: int, w: int, nby: int, nbx: int, blockshape) -> Non
         )
 
 
-def _rows_per_block(th: int, tw: int) -> int:
-    return max(1, min(th, BLOCK_PIXELS // tw))
+def _rows_per_block(th: int, tw: int, pixels: int = BLOCK_PIXELS) -> int:
+    return max(1, min(th, pixels // tw))
 
 
 def hist_tiles(g3: torch.Tensor, tile) -> torch.Tensor:
@@ -138,7 +141,7 @@ def blend_blocks_kernel(g3: torch.Tensor, m4: torch.Tensor, blockshape) -> torch
         raise ValueError(f"m4 must be [{b}, nby, nbx, 256] on {g3.device}, got {tuple(m4.shape)}")
     bh, bw = blockshape
     _check_blend_geometry(h, w, nby, nbx, blockshape)
-    rpb = _rows_per_block(bh, bw)
+    rpb = _rows_per_block(bh, bw, BLEND_BLOCK_PIXELS)
     nsplit = -(-bh // rpb)
     if b > MAX_GRID_YZ or (nby + 1) * nsplit > MAX_GRID_YZ:
         raise ValueError(f"grid too large: images={b}, tile rows x splits={(nby + 1) * nsplit}")

@@ -38,6 +38,7 @@ MAX_STEPS = 16  # csrc/me_exact.cu's kMaxSteps
 ME_BLOCK = (8, 32)  # csrc/me_exact.cu's kBlockY, kBlockX: pixels per block
 ME_ROW_PAD = 8  # csrc/me_exact.cu's kRowPad
 ME_WINDOW_CAP = 32 * 1024  # shared-memory bytes a block's frame-1 window may take
+FAST_MAX_PATCH = 31  # csrc/me_fast_round.cu: a warp's 32 columns hold the patch's reach
 INT_COSTS = ("sad", "ssd")  # the costs the kernels take
 FLOAT_COSTS = ("wsad_shipped", "wsad")  # exact search only, plain version only
 
@@ -264,6 +265,30 @@ def _median3x3(a: torch.Tensor) -> torch.Tensor:
     return v[4]
 
 
+def fast_round(
+    f0: torch.Tensor, f1: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor, step: int,
+    patch_size: int = 5, costfn: str = "sad",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of one round of the fast iteration before its median:
+    warp frame 1 by the state (dy, dx) (zero outside the image), nine
+    candidate costs at {-step, 0, step}^2 as zero-padded box sums of the
+    shifted differences, and the state moved by the first minimum in
+    row-major (dy, dx) order. Returns the moved state as int64 planes."""
+    b, h, w = f0.shape
+    ys, xs = _grid(h, w, f0.device)
+    dy, dx = dy.to(torch.int64), dx.to(torch.int64)
+    a = f0.to(torch.int32)
+    w1 = gather_padded(f1, ys + dy, xs + dx).to(torch.int32)
+    w1p = torch.nn.functional.pad(w1, (step, step, step, step))
+    costs = []
+    for oy in (-step, 0, step):
+        for ox in (-step, 0, step):
+            d = a - w1p[:, step + oy : step + oy + h, step + ox : step + ox + w]
+            costs.append(_boxsum(d.abs() if costfn == "sad" else d * d, patch_size))
+    best = _first_min(costs)
+    return dy + (best // 3 - 1) * step, dx + (best % 3 - 1) * step
+
+
 def me_fast(
     f0: torch.Tensor,
     f1: torch.Tensor,
@@ -272,35 +297,66 @@ def me_fast(
     costfn: str = "sad",
     init: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Plain version of the fast iteration (``_fast_rounds``): per round,
-    warp frame 1 by the state (zero outside the image), nine candidate costs
-    as zero-padded box sums of the shifted differences, first-minimum
-    update, 3x3 median of both state planes. ``init`` = (dy, dx) integer
-    [B, H, W] starts the state there instead of at zero. Returns the state
-    as float32 [B, H, W, 2] (u = dx, v = dy)."""
+    """Plain version of the fast iteration (``_fast_rounds``): per round
+    (``fast_round``), warp frame 1 by the state (zero outside the image),
+    nine candidate costs as zero-padded box sums of the shifted differences,
+    first-minimum update, 3x3 median of both state planes. ``init`` = (dy,
+    dx) integer [B, H, W] starts the state there instead of at zero. Returns
+    the state as float32 [B, H, W, 2] (u = dx, v = dy)."""
     _check_frames(f0, f1, None)
     if costfn not in INT_COSTS:
         raise ValueError(f"costfn {costfn!r} requires method='exact'")
-    b, h, w = f0.shape
-    ys, xs = _grid(h, w, f0.device)
-    a = f0.to(torch.int32)
     if init is None:
-        dy = torch.zeros((b, h, w), dtype=torch.int64, device=f0.device)
+        dy = torch.zeros(f0.shape, dtype=torch.int64, device=f0.device)
         dx = torch.zeros_like(dy)
     else:
-        dy, dx = (t.to(torch.int64) for t in init)
+        dy, dx = init
     for step in me_steps(search_size, patch_size):
-        w1 = gather_padded(f1, ys + dy, xs + dx).to(torch.int32)
-        w1p = torch.nn.functional.pad(w1, (step, step, step, step))
-        costs = []
-        for oy in (-step, 0, step):
-            for ox in (-step, 0, step):
-                d = a - w1p[:, step + oy : step + oy + h, step + ox : step + ox + w]
-                costs.append(_boxsum(d.abs() if costfn == "sad" else d * d, patch_size))
-        best = _first_min(costs)
-        dy = _median3x3(dy + (best // 3 - 1) * step)
-        dx = _median3x3(dx + (best % 3 - 1) * step)
+        dy, dx = fast_round(f0, f1, dy, dx, step, patch_size, costfn)
+        dy, dx = _median3x3(dy), _median3x3(dx)
     return torch.stack([dx.to(torch.float32), dy.to(torch.float32)], dim=-1)
+
+
+def _check_fast(f0: torch.Tensor, f1: torch.Tensor, patch_size: int, costfn: str) -> None:
+    require_cuda_tensor(f0, "f0", torch.uint8, 3)
+    require_cuda_tensor(f1, "f1", torch.uint8, 3)
+    _check_frames(f0, f1, None)
+    if costfn not in INT_COSTS:
+        raise ValueError(f"costfn {costfn!r} requires method='exact'")
+    if patch_size < 1 or patch_size % 2 == 0 or patch_size > FAST_MAX_PATCH:
+        raise ValueError(f"unsupported patch size {patch_size}: odd, at most {FAST_MAX_PATCH}")
+    _check_grid(*f0.shape)
+
+
+def _launch_round(f0, f1, dy, dx, out, patch_size: int, step: int, costfn: str) -> None:
+    """One launch of ``csrc/me_fast_round.cu``: state (dy, dx) (None: zero)
+    moved into the two planes of ``out``."""
+    b, h, w = f0.shape
+    launch(
+        "me_fast_round", "ocvk_me_fast_round", f0.device,
+        f0.data_ptr(), f1.data_ptr(),
+        None if dy is None else dy.data_ptr(), None if dx is None else dx.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), b, h, w, patch_size, step, int(costfn == "ssd"),
+    )
+
+
+def fast_round_kernel(
+    f0: torch.Tensor, f1: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor, step: int,
+    patch_size: int = 5, costfn: str = "sad",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Wrapper of one round: ``fast_round`` for CPU tensors; for CUDA
+    tensors one launch of the round kernel, the state two contiguous int32
+    [B, H, W] planes, the moved state returned as int32 planes."""
+    if f0.device.type == "cpu":
+        return fast_round(f0, f1, dy, dx, step, patch_size, costfn)
+    _check_fast(f0, f1, patch_size, costfn)
+    for name, t in (("dy", dy), ("dx", dx)):
+        require_cuda_tensor(t, name, torch.int32, 3)
+        if t.shape != f0.shape or t.device != f0.device:
+            raise ValueError(f"{name} must be {tuple(f0.shape)} on {f0.device}")
+    out = torch.empty((2, *f0.shape), dtype=torch.int32, device=f0.device)
+    _launch_round(f0, f1, dy, dx, out, patch_size, step, costfn)
+    return out[0], out[1]
 
 
 def me_fast_kernel(
@@ -313,19 +369,12 @@ def me_fast_kernel(
 ) -> torch.Tensor:
     """Wrapper: the plain version for CPU tensors; for CUDA tensors
     (contiguous [B, H, W] uint8, ``init`` two contiguous int32 [B, H, W]
-    planes) one launch of the round kernel and one of the median kernel per
-    step."""
+    planes; odd patch sizes up to 31) one launch of the round kernel and one
+    of the median kernel per step."""
     if f0.device.type == "cpu":
         return me_fast(f0, f1, search_size, patch_size, costfn, init)
-    require_cuda_tensor(f0, "f0", torch.uint8, 3)
-    require_cuda_tensor(f1, "f1", torch.uint8, 3)
-    _check_frames(f0, f1, None)
-    if costfn not in INT_COSTS:
-        raise ValueError(f"costfn {costfn!r} requires method='exact'")
-    if patch_size < 1 or patch_size % 2 == 0:
-        raise ValueError(f"unsupported patch size {patch_size}")
+    _check_fast(f0, f1, patch_size, costfn)
     b, h, w = f0.shape
-    _check_grid(b, h, w)
     dev = f0.device
     dy = dx = None
     if init is not None:
@@ -346,13 +395,7 @@ def me_fast_kernel(
     moved = torch.empty((2, b, h, w), dtype=torch.int32, device=dev)
     state = torch.empty((2, b, h, w), dtype=torch.int32, device=dev)
     for r, step in enumerate(steps):
-        launch(
-            "me_fast_round", "ocvk_me_fast_round", dev,
-            f0.data_ptr(), f1.data_ptr(),
-            None if dy is None else dy.data_ptr(), None if dx is None else dx.data_ptr(),
-            moved[0].data_ptr(), moved[1].data_ptr(), b, h, w, patch_size, step,
-            int(costfn == "ssd"),
-        )
+        _launch_round(f0, f1, dy, dx, moved, patch_size, step, costfn)
         last = r == len(steps) - 1
         launch(
             "me_fast_median", "ocvk_me_fast_median", dev,

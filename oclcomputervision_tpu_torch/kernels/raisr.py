@@ -5,16 +5,22 @@ Ports of ``oclcomputervision_tpu/ops/pallas/raisr_pallas.py``:
 - hash: ``hash_planes_pallas``. ``hash_planes`` is the plain PyTorch
   version, mirroring the XLA twin ``ops/raisr.hash_planes`` (atan2 angle,
   the blur taps summed in order); ``hash_planes_kernel`` wraps
-  ``csrc/raisr_hash.cu``. Contract: >= 0.9999 bucket agreement (only
-  pixels within float rounding of a quantizer boundary may differ).
+  ``csrc/raisr_hash.cu`` (compiled for the shipped domain) and
+  ``csrc/raisr_hash_generic.cu`` (any other config). Contract: >= 0.9999
+  bucket agreement (only pixels within float rounding of a quantizer
+  boundary may differ).
 - apply: ``_apply_phase`` / ``apply_filters_planes``.
   ``apply_filters_planes`` is the plain version; ``apply_filters_planes_kernel``
-  wraps ``csrc/raisr_apply.cu``. Numerics of the TPU kernel: taps and bank
-  rounded to bf16, products (exact in f32) summed in f32. The plain
-  version and the kernel sum the 121 taps in the same order.
+  wraps ``csrc/raisr_apply.cu`` (filter length 11 at scales 2-4, the bank in
+  shared memory) and ``csrc/raisr_apply_generic.cu`` (any other config).
+  Numerics of the TPU kernel: taps and bank rounded to bf16, products (exact
+  in f32) summed in f32. The plain version and the kernels sum the taps in
+  the same order.
 
-Each wrapper takes the plain version for a CPU tensor and launches its
-kernel for a CUDA tensor.
+Each wrapper takes the plain version for a CPU tensor and launches a kernel
+for a CUDA tensor: the compiled form where the config lies in its domain,
+the generic form otherwise (``hash_form``, ``apply_form``: chosen from the
+config and shapes alone), each counted under its own name.
 """
 
 from __future__ import annotations
@@ -139,6 +145,15 @@ HASH_MAX_QUANT = 4  # csrc/raisr_hash.cu's kMaxQuant
 HASH_SCALES = (2, 3, 4)
 
 
+def hash_form(cfg) -> str:
+    """The hash kernel ``cfg`` runs, by its launch count's name: the compiled
+    form (``csrc/raisr_hash.cu``) for blur length 9 at scales 2-4 with at
+    most 4 quantizers of a kind, the generic form otherwise."""
+    nq = max(len(cfg.strength_quantizers), len(cfg.coherence_quantizers))
+    compiled = cfg.gauss_len == HASH_TAPS and cfg.scale in HASH_SCALES and nq <= HASH_MAX_QUANT
+    return "raisr_hash" if compiled else "raisr_hash_generic"
+
+
 class HashParams(ctypes.Structure):
     """The blur taps and quantizers as ``csrc/raisr_hash.cu``'s
     ``HashParams``, which the kernel takes by value (constant-bank operands)."""
@@ -153,41 +168,57 @@ class HashParams(ctypes.Structure):
     ]
 
 
-@functools.lru_cache(maxsize=8)
-def hash_params(cfg) -> HashParams:
-    """The kernel's parameters for ``cfg``: f32 taps of ``_blur_k1`` and
-    f32 quantizers padded with NaN, which no value reaches (``x >= NaN`` is
-    false), so the kernel compares against all four. Raises for a blur
-    length other than 9, a scale outside 2-4 or more than 4 quantizers of a
-    kind."""
+def _hash_values(cfg):
+    """f32 blur taps of ``_blur_k1``, strength and coherence quantizers."""
     from oclcomputervision_tpu_torch.ops.raisr import _blur_k1
 
-    if cfg.gauss_len != HASH_TAPS or cfg.scale not in HASH_SCALES:
+    return (np.asarray(_blur_k1(cfg), np.float32),
+            np.asarray(cfg.strength_quantizers, np.float32).reshape(-1),
+            np.asarray(cfg.coherence_quantizers, np.float32).reshape(-1))
+
+
+@functools.lru_cache(maxsize=8)
+def hash_params(cfg) -> HashParams:
+    """The compiled form's parameters for ``cfg``: f32 taps of ``_blur_k1``
+    and f32 quantizers padded with NaN, which no value reaches (``x >= NaN``
+    is false), so the kernel compares against all four. Raises for a config
+    outside the compiled form's domain (``hash_form``)."""
+    if hash_form(cfg) != "raisr_hash":
         raise ValueError(
-            f"the CUDA hash kernel is compiled for gauss_len {HASH_TAPS} at scales "
-            f"{HASH_SCALES}, got gauss_len {cfg.gauss_len} at scale {cfg.scale}"
+            f"the compiled hash takes gauss_len {HASH_TAPS} at scales {HASH_SCALES} with at "
+            f"most {HASH_MAX_QUANT} quantizers of a kind, got gauss_len {cfg.gauss_len} at "
+            f"scale {cfg.scale}: the generic form runs it"
         )
-    sq, cq = cfg.strength_quantizers, cfg.coherence_quantizers
-    if max(len(sq), len(cq)) > HASH_MAX_QUANT:
-        raise ValueError(f"at most {HASH_MAX_QUANT} quantizers of a kind, got {len(sq)}, {len(cq)}")
+    k1, sq, cq = _hash_values(cfg)
     pad = [math.nan] * HASH_MAX_QUANT
     prm = HashParams()
-    prm.k1[:] = [float(v) for v in np.asarray(_blur_k1(cfg), np.float32)]
-    prm.squant[:] = ([float(np.float32(v)) for v in sq] + pad)[:HASH_MAX_QUANT]
-    prm.cquant[:] = ([float(np.float32(v)) for v in cq] + pad)[:HASH_MAX_QUANT]
+    prm.k1[:] = [float(v) for v in k1]
+    prm.squant[:] = ([float(v) for v in sq] + pad)[:HASH_MAX_QUANT]
+    prm.cquant[:] = ([float(v) for v in cq] + pad)[:HASH_MAX_QUANT]
     prm.na, prm.ns, prm.nc = cfg.num_angle, cfg.num_strength, cfg.num_coherence
     return prm
+
+
+def hash_params_generic(cfg) -> np.ndarray:
+    """The generic form's parameters for ``cfg``, as ``csrc/raisr_hash_generic.cu``
+    reads them from device memory: the f32 taps of ``_blur_k1``, then the
+    strength and then the coherence quantizers, unpadded."""
+    return np.concatenate(_hash_values(cfg))
+
+
+@functools.lru_cache(maxsize=8)
+def _hash_params_on(cfg, device) -> torch.Tensor:
+    return torch.from_numpy(hash_params_generic(cfg)).to(device)
 
 
 def hash_planes_kernel(
     y_planes: torch.Tensor, cfg, hp: int, h2p: int, w2p: int
 ) -> torch.Tensor:
-    """Wrapper: the plain version for a CPU tensor, the CUDA kernel for a
-    CUDA tensor (contiguous [B, s*s, rows, wq] f32; gauss_len 9, scale 2-4)."""
+    """Wrapper: the plain version for a CPU tensor; for a CUDA tensor
+    (contiguous [B, s*s, rows, wq] f32) the kernel ``hash_form(cfg)`` names."""
     if y_planes.device.type == "cpu":
         return hash_planes(y_planes, cfg, hp, h2p, w2p)
     require_cuda_tensor(y_planes, "y_planes", torch.float32, 4)
-    prm = hash_params(cfg)
     s = cfg.scale
     g = cfg.gauss_len // 2
     nimg, ss, rows, wq = y_planes.shape
@@ -198,11 +229,20 @@ def hash_planes_kernel(
         raise ValueError(f"halo {hp} below the hash reach, or {nimg} images of "
                          f"{tuple(y_planes.shape[1:])}")
     out = torch.empty((nimg, ss, h2p, w2p), dtype=torch.int32, device=y_planes.device)
-    launch(
-        "raisr_hash", "ocvk_raisr_hash", y_planes.device,
-        y_planes.data_ptr(), out.data_ptr(), ctypes.addressof(prm), nimg, s, hp, rows, wq,
-        h2p, w2p,
-    )
+    if hash_form(cfg) == "raisr_hash":
+        launch(
+            "raisr_hash", "ocvk_raisr_hash", y_planes.device,
+            y_planes.data_ptr(), out.data_ptr(), ctypes.addressof(hash_params(cfg)), nimg, s,
+            hp, rows, wq, h2p, w2p,
+        )
+    else:
+        prm = _hash_params_on(cfg, y_planes.device)
+        launch(
+            "raisr_hash_generic", "ocvk_raisr_hash_generic", y_planes.device,
+            y_planes.data_ptr(), out.data_ptr(), prm.data_ptr(), nimg, s, cfg.gauss_len,
+            len(cfg.strength_quantizers), len(cfg.coherence_quantizers), cfg.num_angle,
+            cfg.num_strength, cfg.num_coherence, hp, rows, wq, h2p, w2p,
+        )
     return out
 
 
@@ -256,46 +296,71 @@ def apply_filters_planes(
     return out
 
 
-BANK_ROW_STRIDE = 122  # bf16 per filter row on the card: 61 words, an odd count
+BANK_ROW_STRIDE = 122  # bf16 per filter row of the compiled apply: 61 words, an odd count
+APPLY_TAPS = 11  # csrc/raisr_apply.cu's kFL: the filter length it is compiled for
+APPLY_SCALES = (2, 3, 4)
+APPLY_SMEM_LIMIT = 232448  # bytes of shared memory a block may take on the H100
+
+
+def apply_smem(s: int, nbucket: int) -> int:
+    """Dynamic shared memory of ``csrc/raisr_apply.cu``'s launch at scale
+    ``s`` (2-4): its resident phases' banks, then the bf16 tile of s*s planes
+    (that file's ``launch``)."""
+    phases = {2: 4, 3: 3, 4: 2}[s]
+    reach = -(-(APPLY_TAPS // 2) // s)
+    bank_words = -(-phases * nbucket * (BANK_ROW_STRIDE // 2) // 4) * 4
+    return 4 * bank_words + 2 * s * s * (16 + 2 * reach) * (64 + 8)
+
+
+def apply_form(cfg, w2p: int) -> str:
+    """The apply kernel ``cfg`` runs, by its launch count's name: the
+    compiled form (``csrc/raisr_apply.cu``) for filter length 11 at scales
+    2-4 when its resident banks fit a block's shared memory and the plane
+    width is a multiple of 4 (every plane geometry's is), the generic form
+    otherwise."""
+    compiled = (cfg.filter_len == APPLY_TAPS and cfg.scale in APPLY_SCALES and w2p % 4 == 0
+                and apply_smem(cfg.scale, _num_buckets(cfg)) <= APPLY_SMEM_LIMIT)
+    return "raisr_apply" if compiled else "raisr_apply_generic"
+
 
 # laid-out banks, newest last: key -> (weak reference to the filters, bank)
 _BANKS: collections.OrderedDict = collections.OrderedDict()
 _BANKS_KEPT = 8
 
 
-def _bank_rows(filters: torch.Tensor, cfg) -> tuple[torch.Tensor, int]:
-    """The bank as ``csrc/raisr_apply.cu`` reads it: per-phase bf16 rows
-    [s*s, buckets, BANK_ROW_STRIDE], ``phase_rows`` followed by zero padding.
-    The odd word stride puts one tap of different rows on different
-    shared-memory banks.
+def _bank_rows(filters: torch.Tensor, cfg, stride: int = BANK_ROW_STRIDE) -> tuple[torch.Tensor, int]:
+    """The bank as the apply kernels read it: per-phase bf16 rows
+    [s*s, buckets, stride], ``phase_rows`` followed by zero padding. The
+    compiled form's stride of 122 (an odd word count) puts one tap of
+    different rows on different shared-memory banks; the generic form reads
+    rows of fl*fl padded to a multiple of 8 taps, 16 bytes at a time.
 
     Built once per bank: the result is kept for this very tensor (its
     storage address, version counter, device and the scale) and reused until
     the tensor is changed in place or goes away."""
     key = (filters.data_ptr(), filters._version, filters.device, cfg.scale,
-           cfg.filter_len, _num_buckets(cfg))
+           cfg.filter_len, _num_buckets(cfg), stride)
     hit = _BANKS.get(key)
     if hit is not None and hit[0]() is filters:
         _BANKS.move_to_end(key)
-        return hit[1], BANK_ROW_STRIDE
+        return hit[1], stride
     rows = phase_rows(filters, cfg)
     ntap = rows.shape[-1]
-    if ntap > BANK_ROW_STRIDE:
-        raise ValueError(f"{ntap} taps do not fit a row of {BANK_ROW_STRIDE}")
-    bank = torch.zeros(rows.shape[:2] + (BANK_ROW_STRIDE,), dtype=torch.bfloat16,
-                       device=rows.device)
+    if ntap > stride:
+        raise ValueError(f"{ntap} taps do not fit a row of {stride}")
+    bank = torch.zeros(rows.shape[:2] + (stride,), dtype=torch.bfloat16, device=rows.device)
     bank[..., :ntap] = rows
     _BANKS[key] = (weakref.ref(filters), bank)
     while len(_BANKS) > _BANKS_KEPT:
         _BANKS.popitem(last=False)
-    return bank, BANK_ROW_STRIDE
+    return bank, stride
 
 
 def apply_filters_planes_kernel(
     planes: torch.Tensor, bucket_planes: torch.Tensor, filters: torch.Tensor, cfg
 ) -> torch.Tensor:
-    """Wrapper: the plain version for CPU tensors, the CUDA kernel (one
-    launch for every image and phase) for CUDA tensors."""
+    """Wrapper: the plain version for CPU tensors; for CUDA tensors one
+    launch for every image and phase of the kernel ``apply_form`` names."""
     from oclcomputervision_tpu_torch.ops.raisr import plane_halo
 
     if planes.device.type == "cpu":
@@ -316,16 +381,16 @@ def apply_filters_planes_kernel(
                          f"{tuple(bucket_planes.shape)} do not match at scale {s}")
     if rows < h2p + 2 * hp or wq < w2p + 2 * hp:
         raise ValueError(f"planes {tuple(planes.shape)} lack the {hp}-plane halo")
-    if fl != 11 or s not in (2, 3, 4) or w2p % 4:
-        raise ValueError(
-            f"the CUDA apply kernel is compiled for filter_len 11 at scales 2-4 and "
-            f"plane widths that are multiples of 4, got filter_len {fl} at scale {s}, "
-            f"w2p {w2p}"
-        )
-    bank, stride = _bank_rows(filters, cfg)
+    form = apply_form(cfg, w2p)
+    if form == "raisr_apply":
+        bank, stride = _bank_rows(filters, cfg)
+    else:
+        if nimg * ss > 65535:
+            raise ValueError(f"{nimg} images of {ss} phases exceed the generic apply's grid")
+        bank, stride = _bank_rows(filters, cfg, -(-fl * fl // 8) * 8)
     out = torch.empty((nimg, ss, h2p, w2p), dtype=torch.float32, device=planes.device)
     launch(
-        "raisr_apply", "ocvk_raisr_apply", planes.device,
+        form, f"ocvk_{form}", planes.device,
         planes.data_ptr(), bucket_planes.data_ptr(), bank.data_ptr(), out.data_ptr(),
         nimg, nb, s, fl, hp, rows, wq, h2p, w2p, _num_buckets(cfg), stride,
     )

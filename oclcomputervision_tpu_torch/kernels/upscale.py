@@ -109,6 +109,15 @@ def compact_axis_table(n_in: int, s: int, org: int, n_out: int, tile: int, span:
     return idx, wgt
 
 
+COMPILED_SCALES = (2, 3, 4)  # csrc/upscale_planes.cu's compiled forms
+
+
+def upscale_form(s: int) -> str:
+    """The launch count a scale's upscale goes to: the compiled form at
+    scales 2-4, the generic form (scale read at run time) at any other."""
+    return "upscale_planes" if s in COMPILED_SCALES else "upscale_planes_generic"
+
+
 @functools.lru_cache(maxsize=16)
 def _device_tables(h: int, w: int, s: int, hp: int, hq: int, wq: int, device):
     """Row and column compact tables (idx, wgt, idx, wgt) on the device."""
@@ -122,21 +131,22 @@ def upscale_planes_kernel(
     x01: torch.Tensor, cfg, hq: int, wq: int, hp: int
 ) -> torch.Tensor:
     """Wrapper: the plain version for a CPU tensor, the CUDA kernel for a
-    CUDA tensor (contiguous [B, h, w] f32; scale 2-4, wq a multiple of 4)."""
+    CUDA tensor (contiguous [B, h, w] f32, wq a multiple of 4): the form
+    compiled for the scale at scales 2-4, the generic form at any other."""
     if x01.device.type == "cpu":
         return upscale_planes(x01, cfg, hq, wq, hp)
     require_cuda_tensor(x01, "x01", torch.float32, 3)
     s = cfg.scale
     nimg, h, w = x01.shape
-    if s not in (2, 3, 4) or wq % 4 or h * w >= 2**31:
+    if s < 1 or wq % 4 or h * w >= 2**31:
         raise ValueError(
-            f"the CUDA upscale kernel is compiled for scales 2-4 and plane widths "
-            f"that are multiples of 4, got scale {s}, wq {wq}, image {h} x {w}"
+            f"the CUDA upscale kernel takes scales >= 1 and plane widths that are "
+            f"multiples of 4, got scale {s}, wq {wq}, image {h} x {w}"
         )
     tabs = _device_tables(h, w, s, hp, hq, wq, x01.device)
     out = torch.empty((nimg, s * s, hq, wq), dtype=torch.float32, device=x01.device)
     launch(
-        "upscale_planes", "ocvk_upscale_planes", x01.device,
+        upscale_form(s), "ocvk_upscale_planes", x01.device,
         x01.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tabs),
         nimg, h, w, s, hq, wq, *TILE, *SPAN,
     )

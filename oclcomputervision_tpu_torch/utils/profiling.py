@@ -35,6 +35,9 @@ def cuda_time_ms(fn: Callable, *args, warmup: int = 2, iters: int = 5) -> float:
     return statistics.median(times)
 
 
+PROFILE_WINDOWS = 3  # profiled windows device_profile tries before it fails
+
+
 def device_profile(fn: Callable, *args, calls: int = 5) -> tuple[dict, float]:
     """Per-kernel device milliseconds per call of ``fn(*args)``, from
     ``torch.profiler``, and the device's idle share.
@@ -42,20 +45,27 @@ def device_profile(fn: Callable, *args, calls: int = 5) -> tuple[dict, float]:
     Runs ``fn`` once to warm up, then ``calls`` times under the profiler.
     Returns ({kernel name: ms per call}, idle share), where the idle share
     is 1 - (summed kernel time) / (first kernel start to last kernel end).
-    Fails without a card, or when the profiler saw no device activity.
+    A window in which the profiler delivered no device event at all is
+    profiled again, up to ``PROFILE_WINDOWS`` windows: on the H100 the
+    profiler has now and then returned none for a window whose kernels ran.
+    Fails without a card, or when no window saw device activity.
     """
     from torch.profiler import ProfilerActivity, profile
 
     require_cuda()
     fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn(*args)
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = []
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     if not events:
-        raise RuntimeError("torch.profiler recorded no device activity")
+        raise RuntimeError(f"torch.profiler recorded no device activity in {PROFILE_WINDOWS} windows")
     per_kernel: dict = {}
     for e in events:
         per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.device_time / 1e3 / calls

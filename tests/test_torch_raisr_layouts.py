@@ -190,6 +190,77 @@ def test_hash_params_carry_the_plain_versions_taps_and_quantizers(s):
     {"strength_quantizers": (1e-5, 1e-4, 1e-3, 1e-2, 1e-1)},
 ])
 def test_hash_params_refuse_what_the_kernel_is_not_compiled_for(change):
+    # the compiled form's struct refuses the config; the wrapper routes it to
+    # the generic form, whose parameters carry the plain version's values
     cfg = dataclasses.replace(RaisrConfig(), **change)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="generic form"):
         kraisr.hash_params(cfg)
+    assert kraisr.hash_form(cfg) == "raisr_hash_generic"
+    prm = kraisr.hash_params_generic(cfg)
+    gl, nsq = cfg.gauss_len, len(cfg.strength_quantizers)
+    assert prm.dtype == np.float32 and prm.shape == (gl + nsq + len(cfg.coherence_quantizers),)
+    assert np.array_equal(prm[:gl], port._blur_k1(cfg).astype(np.float32))
+    assert np.array_equal(prm[gl : gl + nsq], np.float32(cfg.strength_quantizers))
+    assert np.array_equal(prm[gl + nsq :], np.float32(cfg.coherence_quantizers))
+
+
+@pytest.mark.parametrize("change, hash_form, apply_form", [
+    ({}, "raisr_hash", "raisr_apply"),
+    ({"scale": 3}, "raisr_hash", "raisr_apply"),
+    ({"scale": 4}, "raisr_hash", "raisr_apply"),
+    ({"filter_len": 13}, "raisr_hash", "raisr_apply_generic"),
+    ({"filter_len": 7, "gauss_len": 7}, "raisr_hash_generic", "raisr_apply_generic"),
+    ({"scale": 5}, "raisr_hash_generic", "raisr_apply_generic"),
+    ({"coherence_quantizers": (0.1, 0.2, 0.3, 0.4, 0.5)}, "raisr_hash_generic", "raisr_apply"),
+    # 432 buckets: four resident x2 banks would take 421 KB of shared memory
+    ({"num_strength": 6}, "raisr_hash", "raisr_apply_generic"),
+])
+def test_forms_follow_the_config(change, hash_form, apply_form):
+    cfg = dataclasses.replace(RaisrConfig(), **change)
+    assert kraisr.hash_form(cfg) == hash_form
+    assert kraisr.apply_form(cfg, 128) == apply_form
+    want_up = "upscale_planes" if cfg.scale in (2, 3, 4) else "upscale_planes_generic"
+    assert kupscale.upscale_form(cfg.scale) == want_up
+    if apply_form == "raisr_apply":  # a block's shared memory holds its banks
+        assert kraisr.apply_smem(cfg.scale, 216) <= kraisr.APPLY_SMEM_LIMIT
+    # a plane width that is not a multiple of 4 takes the generic apply
+    assert kraisr.apply_form(cfg, 126) == "raisr_apply_generic"
+
+
+def test_shipped_x2_apply_fills_but_fits_shared_memory():
+    # csrc/raisr_apply.cu at x2: four phases' banks of 216 x 61 words and a
+    # bf16 tile of 4 planes x 22 x 72, 223488 of the 232448 bytes a block may
+    # take: 225 buckets still fit, 226 go to the generic form
+    assert kraisr.apply_smem(2, 216) == 4 * 4 * 216 * 61 + 2 * 4 * 22 * 72 == 223488
+    assert kraisr.apply_smem(2, 225) <= kraisr.APPLY_SMEM_LIMIT < kraisr.apply_smem(2, 226)
+
+
+@pytest.mark.parametrize("fl", [7, 11, 13])
+def test_generic_bank_rows_pad_to_16_bytes(fl):
+    cfg = dataclasses.replace(RaisrConfig(), filter_len=fl)
+    rng = np.random.default_rng(fl)
+    filters = torch.from_numpy(rng.standard_normal((cfg.num_filters, fl, fl)).astype(np.float32))
+    stride = -(-fl * fl // 8) * 8
+    bank, got_stride = kraisr._bank_rows(filters, cfg, stride)
+    assert got_stride == stride and bank.shape == (4, 216, stride)
+    assert torch.equal(bank[..., : fl * fl], kraisr.phase_rows(filters, cfg))
+    assert not bank[..., fl * fl :].float().any()
+
+
+@pytest.mark.parametrize("wrapper", ["upscale", "hash", "apply"])
+def test_wrappers_refuse_a_tensor_on_neither_cpu_nor_cuda(wrapper):
+    # a CPU tensor takes the plain version; any other device than the card
+    # raises, whatever the config (generic ones included)
+    cfg = dataclasses.replace(RaisrConfig(), scale=5)
+    geo = port.plane_geometry(20, 30, cfg)
+    meta = torch.empty((1, 25, geo.hq, geo.wq), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        if wrapper == "upscale":
+            kupscale.upscale_planes_kernel(torch.empty((1, 20, 30), device="meta"), cfg,
+                                           geo.hq, geo.wq, geo.hp)
+        elif wrapper == "hash":
+            kraisr.hash_planes_kernel(meta, cfg, geo.hp, geo.h2p, geo.w2p)
+        else:
+            kraisr.apply_filters_planes_kernel(
+                meta, torch.empty((1, 25, geo.h2p, geo.w2p), dtype=torch.int32, device="meta"),
+                torch.empty((cfg.num_filters, 11, 11), device="meta"), cfg)

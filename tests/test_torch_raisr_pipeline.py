@@ -13,6 +13,7 @@ from oclcomputervision_tpu.models.raisr import RaisrModel as JaxRaisrModel
 from oclcomputervision_tpu.oracle import raisr as oracle_raisr
 from oclcomputervision_tpu.ops.pallas import raisr_pallas
 from oclcomputervision_tpu.ops.raisr import _raisr_planes_batched
+from oclcomputervision_tpu.ops.raisr import raisr_upsample as jax_raisr_upsample
 from oclcomputervision_tpu.utils import asset_path, psnr
 from oclcomputervision_tpu.utils.config import RaisrConfig
 from oclcomputervision_tpu_torch.entry import entry
@@ -93,6 +94,27 @@ def test_ct_blend_matches_oracle(lenna_gray, jax_x2, port_x2):
     want = oracle_raisr.raisr_upsample(img, np.asarray(jax_x2.filters, np.float64), cfg)
     assert psnr(got, want) > 35
     assert not np.array_equal(got, plain)  # the blend did something
+
+
+def test_config_outside_the_compiled_forms_matches_jax_xla_twin(lenna_gray):
+    # filter_len 7, gauss_len 7 and 5 strength quantizers: on the card the
+    # generic hash and apply run it; here their plain versions, against the
+    # JAX package's XLA path (interleaved resize, hash and apply) on the CPU
+    cfg = RaisrConfig(filter_len=7, gauss_len=7, num_strength=6,
+                      strength_quantizers=(1e-5, 1e-4, 1e-3, 1e-2, 1e-1))
+    rng = np.random.default_rng(7)
+    bank = rng.normal(0.0, 0.02, (cfg.num_filters, 7, 7)).astype(np.float32)
+    bank[:, 3, 3] += 1.0
+    img = lenna_gray[240:272, 240:272]
+    want = np.asarray(jax_raisr_upsample(jnp.asarray(img), jnp.asarray(bank), cfg))
+    model = RaisrModel.from_numpy(bank, cfg, "cpu")
+    assert kraisr.hash_form(model.cfg) == "raisr_hash_generic"
+    assert kraisr.apply_form(model.cfg, 128) == "raisr_apply_generic"
+    got = model.upsample(img).numpy()
+    assert got.shape == want.shape == (64, 64)
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert (diff <= 1).mean() >= 0.999
+    assert psnr(got, want) > 45
 
 
 def test_batched_equals_single_and_bgra_alpha_passes_through(lenna_rgb, port_x2):
