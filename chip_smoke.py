@@ -43,9 +43,18 @@ failure raises, and the script exits non-zero without the result line):
    against 255;
 3d. the RAISR kernels at configs outside the compiled forms' domain (x2
    with filter_len 7, gauss_len 7 and 5 strength quantizers; x2 with
-   filter_len 13; x5), banks made from the seed: the generic forms
-   (upscale_planes_generic, raisr_hash_generic, raisr_apply_generic)
-   against their plain versions on 4 lenna images of 256^2 and LR 20x30;
+   filter_len 13; x5; x2 with filter_len 17 and 5 strength quantizers,
+   whose bank fits no block's shared memory), banks made from the seed:
+   the generic forms (upscale_planes_generic, raisr_hash_generic,
+   raisr_apply_generic, raisr_apply_generic_l2) against their plain
+   versions on 4 lenna images of 256^2, LR 20x30 and 100x75, and LR 13x21
+   on 37x102 planes (a width that is not a multiple of 4), the apply also
+   on buckets with -1 and past-the-last holes; the apply forms must equal
+   their plain versions bit for bit, the hash's differing buckets are
+   printed; the hash also at the blur lengths no config above runs (3 and
+   15 on its run-time path, 5, 11 and 13 compiled in); the generic apply's
+   shared-memory size in Python (which chooses the form) must equal its
+   .cu's over scales 2-6, filter_len 1-17, 27-432 buckets and 1-4 phases;
 4. RAISR end to end through ``RaisrModel.load(...).upsample``: a
    16x1024x1024 uint8 batch (each RAISR kernel's launch count must rise
    during it, no generic form's) and one RGB image (lenna 512^2 -> 1024^2,
@@ -53,8 +62,8 @@ failure raises, and the script exits non-zero without the result line):
    images and a BGRA lenna (alpha from the seed) through the kernels, each
    held against the plain path;
 4d. one ``RaisrModel(cfg, bank).upsample`` per generic config on 2 lenna
-   images of 256^2: it must launch the generic forms and agree with the
-   plain path;
+   images of 256^2: it must launch the generic forms its config needs and
+   agree with the plain path;
 4b. histeq end to end through ``ops``: ``histeq_global`` on 256x768x1280,
    ``histeq_local_block(x, 0.5, 0.05, 3.0, (256, 256))`` on 64x768x1280
    with clahe_clip 0 and 2, and ``apply_block_mappings`` on 2x880x1400 with
@@ -84,9 +93,17 @@ failure raises, and the script exits non-zero without the result line):
    time on uniformly random luma and for the apply its time on uniformly
    random buckets beside the bench images' own;
 6d. each generic form's time at 4 x 256^2 (the upscale at x5, the hash at
-   filter_len 7 / gauss_len 7, the apply at filter_len 13) beside its bound
-   and plain version (and F.interpolate for the upscale), and every stage's
-   time at each generic config;
+   filter_len 7 / gauss_len 7, the apply at filter_len 13, the L2 apply at
+   filter_len 17) beside its bound and plain version (and F.interpolate
+   for the upscale), and every stage's time at each generic config;
+6e. each generic config's ``RaisrModel.upsample`` at the bench geometry
+   (16x1024^2 lenna, through the kernels only): output MP/s (CUDA events,
+   median of 5 after 2 warm-ups) beside the shipped x2 model's, each
+   stage's own device time beside its bound, the idle share and the peak
+   device memory, and the shared-memory passes of the apply's filter-row
+   loads on its buckets; then, at that geometry, the hash against its plain
+   version on 2 of the images (differing buckets printed) and the apply on
+   all 16, which must equal its plain version bit for bit;
 6b. histeq timing, the same way: input MP/s of both ops through the
    kernels and the plain versions, their profiles, and each kernel's,
    plain version's and single PyTorch call's time at the bench shapes
@@ -177,23 +194,41 @@ OPS_PER_ELEM = {
     "me_fast_median": 2 * 19 * 2,  # per launch: 2 planes, 19 exchanges of a min and a max
 }
 RAISR_KERNELS = ("upscale_planes", "raisr_hash", "raisr_apply")
-GENERIC_KERNELS = ("upscale_planes_generic", "raisr_hash_generic", "raisr_apply_generic")
+GENERIC_KERNELS = ("upscale_planes_generic", "raisr_hash_generic", "raisr_apply_generic",
+                   "raisr_apply_generic_l2")
+QUANT5 = (1e-5, 1e-4, 1e-3, 1e-2, 1e-1)  # five strength quantizers: num_strength 6
 # configs outside the compiled RAISR forms' domain, each with a bank made
 # from the seed: (the fields that differ from RaisrConfig(), the generic
 # forms it must launch)
 GENERIC_CONFIGS = {
     "x2 filter_len 7, gauss_len 7, 5 strength quantizers": (
-        {"filter_len": 7, "gauss_len": 7, "num_strength": 6,
-         "strength_quantizers": (1e-5, 1e-4, 1e-3, 1e-2, 1e-1)},
+        {"filter_len": 7, "gauss_len": 7, "num_strength": 6, "strength_quantizers": QUANT5},
         ("raisr_hash_generic", "raisr_apply_generic")),
     "x2 filter_len 13": ({"filter_len": 13}, ("raisr_apply_generic",)),
-    "x5": ({"scale": 5}, GENERIC_KERNELS),
+    "x5": ({"scale": 5}, ("upscale_planes_generic", "raisr_hash_generic",
+                          "raisr_apply_generic")),
+    # 432 rows of 145 words: one phase's bank (250,560 bytes) fits no block
+    "x2 filter_len 17, 5 strength quantizers": (
+        {"filter_len": 17, "num_strength": 6, "strength_quantizers": QUANT5},
+        ("raisr_hash_generic", "raisr_apply_generic_l2")),
 }
 GENERIC_SHAPE = (4, 256, 256)  # LR batch the generic forms are checked and timed at
+# LR batches besides it in phase 3d, each with the plane geometry (h2p, w2p,
+# hq, wq) to run it at (None: the pipeline's own): random LR smaller than
+# one tile, phase 3's 100 x 75, and 13 x 21 on 37 x 102 planes, which no
+# image gives, whose width is not a multiple of 4 and which the apply's and
+# the hash's tiles divide on neither axis
+GENERIC_CASES = (((1, 20, 30), None), ((2, 100, 75), None), ((1, 13, 21), (37, 102, 45, 112)))
+# blur lengths of the generic hash that no config above runs, held against
+# the plain version on random LR 100 x 75: 3 and 15, which it does not
+# compile in (its run-time path), and 5, 11 and 13, which it does
+GENERIC_HASH_BLURS = ({"gauss_len": 3}, {"scale": 3, "gauss_len": 15}, {"gauss_len": 5},
+                      {"scale": 3, "gauss_len": 11}, {"scale": 5, "gauss_len": 13})
 # which config each generic form is timed at
 GENERIC_TIMED = {"upscale_planes_generic": "x5",
                  "raisr_hash_generic": "x2 filter_len 7, gauss_len 7, 5 strength quantizers",
-                 "raisr_apply_generic": "x2 filter_len 13"}
+                 "raisr_apply_generic": "x2 filter_len 13",
+                 "raisr_apply_generic_l2": "x2 filter_len 17, 5 strength quantizers"}
 GLOBAL_KERNELS = ("hist256", "apply_lut")
 LOCAL_KERNELS = ("hist_tiles", "blend_blocks")
 ME_KERNELS = ("me_exact", "me_fast_round", "me_fast_median")
@@ -224,6 +259,10 @@ KERNELS = {
     ),
     "raisr_apply_generic": (
         "oclcomputervision_tpu_torch/kernels/csrc/raisr_apply_generic.cu",
+        "oclcomputervision_tpu/ops/pallas/raisr_pallas.py:385",
+    ),
+    "raisr_apply_generic_l2": (
+        "oclcomputervision_tpu_torch/kernels/csrc/raisr_apply_generic_l2.cu",
         "oclcomputervision_tpu/ops/pallas/raisr_pallas.py:385",
     ),
     "hist256": (
@@ -558,40 +597,49 @@ def generic_models(rng, device):
 def generic_vs_plain(models, rng, device):
     """Phase 3d: the RAISR kernels at configs outside the compiled forms'
     domain against their plain versions, on lenna batches of GENERIC_SHAPE
-    and random LR 20 x 30 (smaller than a tile): the upscale over the whole
-    plane, the hash's agreement, the apply on the hash's buckets and on
-    random ones with entries -1 and past the last bucket (which must give
-    0). Each config's launches must go to the forms GENERIC_CONFIGS names."""
+    and the random LR batches of GENERIC_CASES: the upscale over the whole
+    plane, the hash's agreement (differing buckets printed), the apply on
+    the hash's buckets and on random ones with entries -1 and past the last
+    bucket (which must give 0), which must equal the plain version bit for
+    bit. Each config's launches must go to the forms GENERIC_CONFIGS names.
+    The hash also at the blur lengths of GENERIC_HASH_BLURS; the generic
+    apply's shared-memory size in Python against its .cu's."""
+    import dataclasses
+
     import torch
 
     from oclcomputervision_tpu_torch.kernels import _build
     from oclcomputervision_tpu_torch.kernels import raisr as kr
     from oclcomputervision_tpu_torch.kernels import upscale as ku
     from oclcomputervision_tpu_torch.ops.raisr import plane_geometry
+    from oclcomputervision_tpu_torch.utils.config import RaisrConfig
 
     up_err = {k: 0.0 for k in ("upscale_planes", "upscale_planes_generic")}
-    ap_err = hash_err = 0.0
+    ap_err = {k: 0.0 for k in ("raisr_apply_generic", "raisr_apply_generic_l2")}
+    hash_err = 0.0
     agree, differing = 1.0, 0
     for name, model in models.items():
         cfg = model.cfg
         nbucket = cfg.num_angle * cfg.num_strength * cfg.num_coherence
         want = GENERIC_CONFIGS[name][1]
-        inputs = {"lenna": torch.from_numpy(lenna_batch(rng, *GENERIC_SHAPE)).to(device).float()
-                  / torch.tensor(255.0, device=device),
-                  "random": torch.from_numpy(rng.random((1, 20, 30), dtype="float32")).to(device)}
-        for tag, x01 in inputs.items():
+        inputs = [("lenna", torch.from_numpy(lenna_batch(rng, *GENERIC_SHAPE)).to(device).float()
+                   / torch.tensor(255.0, device=device), None)]
+        inputs += [("random", torch.from_numpy(rng.random(shape, dtype="float32")).to(device),
+                    planes_geo) for shape, planes_geo in GENERIC_CASES]
+        for tag, x01, planes_geo in inputs:
             geo = plane_geometry(x01.shape[1], x01.shape[2], cfg)
+            h2p, w2p, hq, wq = planes_geo or (geo.h2p, geo.w2p, geo.hq, geo.wq)
             torch.cuda.synchronize()
             _build.reset_launches()
-            up_k = ku.upscale_planes_kernel(x01, cfg, geo.hq, geo.wq, geo.hp)
-            up_p = ku.upscale_planes(x01, cfg, geo.hq, geo.wq, geo.hp)
+            up_k = ku.upscale_planes_kernel(x01, cfg, hq, wq, geo.hp)
+            up_p = ku.upscale_planes(x01, cfg, hq, wq, geo.hp)
             err = (up_k - up_p).abs().max().item()
             up_name = ku.upscale_form(cfg.scale)
             up_err[up_name] = max(up_err[up_name], err)
-            a, nd, hb = hash_agreement(f"{name}, {tag} LR {tuple(x01.shape)}", cfg, up_k, geo.hp,
-                                       geo.h2p, geo.w2p)
+            a, nd, hb = hash_agreement(f"{name}, {tag} LR {tuple(x01.shape)} planes "
+                                       f"{tuple(up_k.shape)}", cfg, up_k, geo.hp, h2p, w2p)
             agree, differing = min(agree, a), differing + nd
-            hb_p = kr.hash_planes(up_k, cfg, geo.hp, geo.h2p, geo.w2p)
+            hb_p = kr.hash_planes(up_k, cfg, geo.hp, h2p, w2p)
             hash_err = max(hash_err, (hb - hb_p).abs().max().item())
             holes = torch.randint(0, nbucket, hb.shape, device=device, dtype=torch.int32)
             holes[..., ::7, ::5] = -1
@@ -606,22 +654,45 @@ def generic_vs_plain(models, rng, device):
             out_of_range = ((holes < 0) | (holes >= nbucket)).repeat(2, 1, 1, 1)
             if ap_k[out_of_range].abs().max().item() != 0.0:
                 raise AssertionError(f"{name}: an out-of-range bucket did not give 0")
-            ap_err = max(ap_err, *errs)
+            ap_name = kr.apply_form(cfg, w2p)
+            ap_err[ap_name] = max(ap_err[ap_name], *errs)
             launched = {k: v for k, v in _build.LAUNCHES.items() if v}
             print(f"{name}, {tag} LR {tuple(x01.shape)}: upscale max|kernel - plain| {err:.3e}, "
-                  f"apply on the hash's / random buckets {errs[0]:.3e} / {errs[1]:.3e}; "
+                  f"{ap_name} on the hash's / random buckets {errs[0]:.3e} / {errs[1]:.3e}; "
                   f"launches {launched}")
-            forms = {ku.upscale_form(cfg.scale), kr.hash_form(cfg),
-                     kr.apply_form(cfg, geo.w2p)}
+            forms = {ku.upscale_form(cfg.scale), kr.hash_form(cfg), ap_name}
             if not set(want) <= forms or set(launched) != forms:
                 raise AssertionError(f"{name} ran {launched}, not the generic forms {want}")
-    if max(up_err.values()) > UPSCALE_TOL or ap_err > APPLY_TOL or agree < HASH_AGREEMENT:
+    # the generic apply forms sum the taps in the plain version's order: equal
+    for change in GENERIC_HASH_BLURS:
+        cfg = dataclasses.replace(RaisrConfig(), **change)
+        x01 = torch.from_numpy(rng.random((2, 100, 75), dtype="float32")).to(device)
+        geo = plane_geometry(100, 75, cfg)
+        up = ku.upscale_planes_kernel(x01, cfg, geo.hq, geo.wq, geo.hp)
+        a, nd, _ = hash_agreement(f"gauss_len {cfg.gauss_len}, random LR (2, 100, 75)", cfg, up,
+                                  geo.hp, geo.h2p, geo.w2p)
+        agree, differing = min(agree, a), differing + nd
+    # the layout the generic apply carves out of shared memory is written
+    # twice: in Python, which chooses the form on any device, and in the .cu
+    lib = _build.library()
+    sizes = [(s, fl, nbk, p) for s in range(2, 7) for fl in range(1, 18)
+             for nbk in (27, 72, 144, 216, 225, 288, 432) for p in range(1, min(4, s * s) + 1)]
+    off = [(k, kr.generic_apply_smem(*k), lib.ocvk_raisr_apply_generic_smem(*k))
+           for k in sizes if kr.generic_apply_smem(*k) != lib.ocvk_raisr_apply_generic_smem(*k)]
+    print(f"generic apply shared memory: Python and the .cu agree on {len(sizes) - len(off)} "
+          f"of {len(sizes)} (scale, filter_len, buckets, phases)")
+    if off:
+        raise AssertionError(f"generic_apply_smem differs from the .cu's: {off[:5]}")
+    if (max(up_err.values()) > UPSCALE_TOL or max(ap_err.values()) != 0.0
+            or agree < HASH_AGREEMENT):
         raise AssertionError(f"generic forms off their plain versions: upscale {up_err}, "
                              f"apply {ap_err}, hash agreement {agree}")
+    print(f"generic forms: apply max|kernel - plain| {ap_err}, hash {differing} differing "
+          f"buckets over every case (lowest agreement {agree:.7f})")
     return {"upscale_planes_generic": {"max_abs_err": up_err["upscale_planes_generic"]},
             "raisr_hash_generic": {"max_abs_err": hash_err, "agreement": agree,
                                    "differing": differing},
-            "raisr_apply_generic": {"max_abs_err": ap_err}}
+            **{k: {"max_abs_err": v} for k, v in ap_err.items()}}
 
 
 def generic_main_path(models, rng, device):
@@ -939,6 +1010,92 @@ def generic_timing(models, rng, card, device):
         print(f"[{card}] {config} at {shape}: " + ", ".join(
             f"{name} {kernel_ms(name, run[0]):.4f} ms" for name, run in runs.items()))
     return times
+
+
+def generic_bench(models, rng, x2_mp_out_per_s, card, device):
+    """Phase 6e: each generic config's ``RaisrModel.upsample`` at the bench
+    geometry (BATCH x LR^2 uint8 lenna, through the kernels only: the plain
+    path at that size takes too long and, at x5, too much memory): output
+    MP/s from CUDA events (median of 5 after 2 warm-ups) beside the shipped
+    x2 model's, each stage's own device time (torch.profiler) and its bound
+    (the bytes it must move, or hash_ops(cfg) and 2 fl^2 operations per HR
+    pixel). The generic forms must have run. Then the hash (on 2 images)
+    and the apply (on all) at this geometry against their plain versions."""
+    import torch
+
+    from oclcomputervision_tpu_torch.kernels import raisr as kr
+    from oclcomputervision_tpu_torch.kernels import upscale as ku
+    from oclcomputervision_tpu_torch.ops.raisr import plane_geometry
+    from oclcomputervision_tpu_torch.utils import cuda_time_ms, device_profile
+
+    x = torch.from_numpy(lenna_batch(rng, BATCH, LR)).to(device)
+    n, h, w = x.shape
+    shape = "x".join(str(d) for d in x.shape)
+    x01 = x[:2].float() / torch.tensor(255.0, device=device)
+    results = {}
+    for config, model in models.items():
+        cfg = model.cfg
+        s, fl = cfg.scale, cfg.filter_len
+        geo = plane_geometry(h, w, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_time_ms(model.upsample, x)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        mp_out = n * h * w * s * s / 1e6
+        per_kernel, idle = device_profile(model.upsample, x)
+        # bytes each stage must move: LR f32 in and planes out; planes in and
+        # buckets out; planes, buckets and bank in, filtered planes out
+        planes = n * s * s * geo.hq * geo.wq * 4
+        plane_px = n * s * s * geo.h2p * geo.w2p
+        stage_io = {
+            ku.upscale_form(s): (n * h * w * 4 + planes, n * s * s * geo.hq * geo.wq, None),
+            kr.hash_form(cfg): (planes + plane_px * 4, plane_px, hash_ops(cfg)),
+            kr.apply_form(cfg, geo.w2p): (planes + plane_px * 8 + model.filters.numel() * 4,
+                                          plane_px, 2 * fl * fl),
+        }
+        stages = {}
+        for name, (moved, elems, ops) in stage_io.items():
+            hits = [v for k, v in per_kernel.items() if f"{name}_kernel" in k]
+            if not hits:
+                raise AssertionError(f"{config}: the profiler saw no {name} kernel")
+            bms, by = bound(name, moved, elems, ops)
+            stages[name] = {"ms": sum(hits), "bound_ms": bms, "bound_by": by}
+        glue = sum(per_kernel.values()) - sum(v["ms"] for v in stages.values())
+        # the hash against its plain version on two images, whose grid still
+        # gives every SM 4 blocks of full-height strips (128 HR rows at x2,
+        # 125 at x5) as the batch's does; the filter-row loads'
+        # shared-memory passes on their buckets (the generic form's warps
+        # read rows as raisr_apply.cu's do)
+        up = ku.upscale_planes_kernel(x01, cfg, geo.hq, geo.wq, geo.hp)
+        agree, ndiff, hb = hash_agreement(f"lenna {tuple(x01.shape)} (6e, config '{config}')",
+                                          cfg, up, geo.hp, geo.h2p, geo.w2p)
+        passes = bank_passes(hb)
+        del up, hb
+        # the apply on the whole batch (every tile the timed runs walk)
+        # against its plain version: equal
+        xb = x.float() / torch.tensor(255.0, device=device)
+        up = ku.upscale_planes_kernel(xb, cfg, geo.hq, geo.wq, geo.hp)
+        del xb
+        hb = kr.hash_planes_kernel(up, cfg, geo.hp, geo.h2p, geo.w2p)
+        got = kr.apply_filters_planes_kernel(up, hb, model.filters, cfg)
+        ap_err = (got - kr.apply_filters_planes(up, hb, model.filters, cfg)).abs().max().item()
+        del up, hb, got
+        print(f"{config}, lenna {shape} (6e): {kr.apply_form(cfg, geo.w2p)} max|kernel - plain| "
+              f"{ap_err:.3e}")
+        if ap_err != 0.0:
+            raise AssertionError(f"{config}: the apply is off its plain version by {ap_err} "
+                                 f"at {shape}")
+        results[config] = {"e2e_ms": ms, "mp_out_per_s": mp_out / ms * 1e3, "idle_share": idle,
+                           "peak_gib": peak, "stages": stages, "glue_ms": glue,
+                           "bank_passes": passes, "hash_agreement": agree,
+                           "hash_differing": ndiff, "apply_max_abs_err": ap_err}
+        print(f"[{card}] 6e {config}, {shape} uint8 -> {n}x{s * h}x{s * w}: {ms:.4f} ms, "
+              f"{mp_out / ms * 1e3:.2f} MP out/s (shipped x2: {x2_mp_out_per_s:.2f}), idle share "
+              f"{idle:.4f}, peak {peak:.2f} GiB; " + ", ".join(
+                  f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, {v['bound_by']})"
+                  for k, v in stages.items()) + f", glue {glue:.4f} ms; {passes:.4f} "
+              f"shared-memory passes per filter-row load")
+        torch.cuda.empty_cache()
+    return results
 
 
 def histeq_batches(rng, device):
@@ -1684,7 +1841,22 @@ def main() -> int:
 
     # phase 6d: the generic forms' timing
     times.update(generic_timing(generic, rng, card, device))
+
+    # phase 6e: each generic config end to end at the bench geometry
+    e2e_generic = generic_bench(generic, rng, e2e["mp_out_per_s"], card, device)
     del generic
+    # its checks at the bench geometry join phase 3d's in the kernels line
+    for r in e2e_generic.values():
+        if "raisr_hash_generic" in r["stages"]:  # else the compiled hash (filter_len 13)
+            hg = errs["raisr_hash_generic"]
+            hg["agreement"] = min(hg["agreement"], r["hash_agreement"])
+        else:
+            hg = errs["raisr_hash"]
+            hg["min_agreement"] = min(hg["min_agreement"], r["hash_agreement"])
+        hg["differing"] += r["hash_differing"]
+        ap = errs["raisr_apply_generic_l2" if "raisr_apply_generic_l2" in r["stages"]
+                  else "raisr_apply_generic"]
+        ap["max_abs_err"] = max(ap["max_abs_err"], r["apply_max_abs_err"])
 
     # phase 6b: histeq timing
     histeq_times, histeq_e2e = histeq_timing(batches, card, device)
@@ -1694,7 +1866,8 @@ def main() -> int:
     # phase 6c: motion timing
     me_times, me_e2e = me_timing(rng, pyramid_batch, card, device)
     times.update(me_times)
-    e2e = {"raisr_x2": e2e, **histeq_e2e, **me_e2e, "me_epe": me_epe}
+    e2e = {"raisr_x2": e2e, "raisr_generic": e2e_generic, **histeq_e2e, **me_e2e,
+           "me_epe": me_epe}
 
     kernels = [
         {

@@ -51,6 +51,8 @@ LAUNCHES = {
     "upscale_planes_generic": 0,
     "raisr_hash_generic": 0,
     "raisr_apply_generic": 0,
+    # the apply's form for a bank too large for shared memory
+    "raisr_apply_generic_l2": 0,
     "hist256": 0,
     "apply_lut": 0,
     "hist_tiles": 0,
@@ -75,7 +77,10 @@ _SIGNATURES = {
     # planes, buckets, bank, out, nimg, nb, s, fl, hp, rows, wq, h2p,
     # w2p, nbucket, row_stride, stream
     "ocvk_raisr_apply": [_VP] * 4 + [_I] * 11 + [_VP],
-    "ocvk_raisr_apply_generic": [_VP] * 4 + [_I] * 11 + [_VP],
+    "ocvk_raisr_apply_generic_l2": [_VP] * 4 + [_I] * 11 + [_VP],
+    # planes, buckets, bank, taps, out, nimg, nb, s, fl, hp, rows, wq, h2p,
+    # w2p, nbucket, row_words, phases, stream
+    "ocvk_raisr_apply_generic": [_VP] * 5 + [_I] * 12 + [_VP],
     # x, out, nimg, n, stream
     "ocvk_hist256": [_VP] * 2 + [_I] * 2 + [_VP],
     # x, luts, out, nimg, n, stream
@@ -185,6 +190,9 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.ocvk_error_string.argtypes = [ctypes.c_int]
         lib.ocvk_error_string.restype = ctypes.c_char_p
+        # s, fl, nbucket, phases -> bytes (host only: no launch)
+        lib.ocvk_raisr_apply_generic_smem.argtypes = [_I] * 4
+        lib.ocvk_raisr_apply_generic_smem.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 

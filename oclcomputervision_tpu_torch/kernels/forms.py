@@ -2,17 +2,29 @@
 
     python3 -m oclcomputervision_tpu_torch.kernels.forms KERNEL LABEL=SOURCE[|OLD|NEW]... ...
 
-Each form is a ``.cu`` source with the kernel's C entry point (the one
-``_build._SIGNATURES`` names), optionally with each literal text OLD replaced
-by its NEW first (each must occur). Every form is built alone with the library's
-nvcc flags into ``build/kernel_forms/`` and timed with torch.profiler (the
-kernel's own device time, 5 calls after a warm-up) on the inputs
-``chip_smoke.py`` times that kernel at, in turns (forms in order, then in
-reverse order, three times), and checked equal to the plain version. KERNEL
-is ``blend_blocks`` (64 x 768 x 1280 at 256^2 blocks, ms per launch) or
-``me_fast_round`` (4 noisy VGA pairs, search 15 and patch 5: three rounds,
-ms per 3 launches). Prints one line per form and turn, and a JSON line of
-the medians. Needs the card: a CPU run is refused.
+Each form is a ``.cu`` source with one of the kernel's C entry points (those
+``ENTRIES`` names, with the argument types ``_build._SIGNATURES`` gives),
+optionally with each literal text OLD replaced by its NEW first (each must
+occur). Every form is built alone with the library's nvcc flags into
+``build/kernel_forms/`` and timed with torch.profiler (the kernel's own
+device time, 5 calls after a warm-up) on the inputs ``chip_smoke.py`` times
+that kernel at, in turns (forms in order, then in reverse order, three
+times), and checked equal to the plain version (at the bench geometry of
+the RAISR kernels, where the plain version is too slow, to the library's
+own form, which ``chip_smoke.py`` holds to it). KERNEL is
+
+- ``blend_blocks``: 64 x 768 x 1280 at 256^2 blocks, ms per launch;
+- ``me_fast_round``: 4 noisy VGA pairs, search 15 and patch 5: three
+  rounds, ms per 3 launches;
+- ``raisr_hash_generic``: x2 with gauss_len 7 and 5 strength quantizers on
+  4 x 256^2 lenna (phase 6d) and on 16 x 1024^2 (6e), and x5 on 16 x 1024^2;
+- ``raisr_apply_generic``: x2 filter_len 13 on 4 x 256^2 and 16 x 1024^2,
+  and x5 on 16 x 1024^2, the buckets the hash's. A form may export
+  ``ocvk_raisr_apply_generic`` (the resident-bank form) or
+  ``ocvk_raisr_apply_generic_l2`` (the one-thread-per-pixel L2 form).
+
+Prints one line per form, input and turn, and a JSON line of the medians.
+Needs the card: a CPU run is refused.
 """
 
 from __future__ import annotations
@@ -32,7 +44,29 @@ from oclcomputervision_tpu_torch._device import require_cuda
 from oclcomputervision_tpu_torch.kernels import _build
 
 FORMS_DIR = os.path.join(os.path.dirname(_build.BUILD_DIR), "kernel_forms")
-ENTRY = {"blend_blocks": "ocvk_blend_blocks", "me_fast_round": "ocvk_me_fast_round"}
+# kernel -> the C entry points a form of it may export
+ENTRIES = {
+    "blend_blocks": ("ocvk_blend_blocks",),
+    "me_fast_round": ("ocvk_me_fast_round",),
+    "raisr_hash_generic": ("ocvk_raisr_hash_generic",),
+    "raisr_apply_generic": ("ocvk_raisr_apply_generic", "ocvk_raisr_apply_generic_l2"),
+}
+
+
+def entry(lib: ctypes.CDLL, kernel: str):
+    """(name, function) of the entry point of ``kernel`` that ``lib`` exports."""
+    for name in ENTRIES[kernel]:
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = _build._SIGNATURES[name]
+            fn.restype = ctypes.c_int
+            return name, fn
+    raise ValueError(f"the form exports none of {ENTRIES[kernel]}")
+
+
+def _check(rc: int) -> None:
+    if rc:
+        raise RuntimeError(f"launch failed: {rc}")
 
 
 def build_form(label: str, spec: str) -> ctypes.CDLL:
@@ -56,10 +90,13 @@ def build_form(label: str, spec: str) -> ctypes.CDLL:
 
 
 def kernel_ms(fn, name: str) -> float:
+    """Device ms per call of the kernels whose names contain ``name`` (every
+    form of a kernel is named after it: ``raisr_apply_generic`` also finds
+    ``raisr_apply_generic_l2_kernel``)."""
     from oclcomputervision_tpu_torch.utils import device_profile
 
     per_kernel, _ = device_profile(fn)
-    hits = [ms for k, ms in per_kernel.items() if f"{name}_kernel" in k]
+    hits = [ms for k, ms in per_kernel.items() if name in k]
     if not hits:
         raise AssertionError(f"the profiler saw no {name} kernel in {sorted(per_kernel)}")
     return sum(hits)
@@ -79,14 +116,13 @@ def blend_case(device):
     rpb = kl._rows_per_block(*block, kl.BLEND_BLOCK_PIXELS)
     out = torch.empty_like(x)
 
-    def run(fn):
-        rc = fn(x.data_ptr(), m4.data_ptr(), out.data_ptr(), b, h, w, nby, nbx, *block, rpb,
-                torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"launch failed: {rc}")
+    def run(lib):
+        _, fn = entry(lib, "blend_blocks")
+        _check(fn(x.data_ptr(), m4.data_ptr(), out.data_ptr(), b, h, w, nby, nbx, *block, rpb,
+                  torch.cuda.current_stream().cuda_stream))
         return out
 
-    return run, kl.blend_blocks(x, m4, block)
+    return [("64x768x1280", run, kl.blend_blocks(x, m4, block), "the plain version")]
 
 
 def round_case(device):
@@ -105,14 +141,13 @@ def round_case(device):
     steps = km.me_steps(15, 5)
     states = torch.empty((len(steps), 2, b, h, w), dtype=torch.int32, device=device)
 
-    def run(fn):
+    def run(lib):
+        _, fn = entry(lib, "me_fast_round")
         dy = dx = None
         for r, step in enumerate(steps):
-            rc = fn(f0.data_ptr(), f1.data_ptr(), dy, dx, states[r, 0].data_ptr(),
-                    states[r, 1].data_ptr(), b, h, w, 5, step, 0,
-                    torch.cuda.current_stream().cuda_stream)
-            if rc:
-                raise RuntimeError(f"launch failed: {rc}")
+            _check(fn(f0.data_ptr(), f1.data_ptr(), dy, dx, states[r, 0].data_ptr(),
+                      states[r, 1].data_ptr(), b, h, w, 5, step, 0,
+                      torch.cuda.current_stream().cuda_stream))
             dy, dx = states[r, 0].data_ptr(), states[r, 1].data_ptr()
         return states
 
@@ -122,40 +157,142 @@ def round_case(device):
     for step in steps:
         dy, dx = km.fast_round(f0, f1, dy, dx, step, 5, "sad")
         want.append(torch.stack([dy, dx]).to(torch.int32))
-    return run, torch.stack(want)
+    return [("4x480x640", run, torch.stack(want), "the plain version")]
+
+
+QUANT5 = (1e-5, 1e-4, 1e-3, 1e-2, 1e-1)
+# (config change, LR batch) of each RAISR input: phase 6d's, then 6e's
+RAISR_INPUTS = {
+    "raisr_hash_generic": (
+        ({"filter_len": 7, "gauss_len": 7, "num_strength": 6, "strength_quantizers": QUANT5},
+         (4, 256)),
+        ({"filter_len": 7, "gauss_len": 7, "num_strength": 6, "strength_quantizers": QUANT5},
+         (16, 1024)),
+        ({"scale": 5}, (16, 1024)),
+    ),
+    "raisr_apply_generic": (
+        ({"filter_len": 13}, (4, 256)),
+        ({"filter_len": 13}, (16, 1024)),
+        ({"scale": 5}, (16, 1024)),
+    ),
+}
+
+
+def raisr_cases(device, kernel: str):
+    """The generic hash's or apply's inputs at each RAISR_INPUTS entry (lenna
+    as chip_smoke.lenna_batch builds it, a bank from seed 0), each with what
+    a form must equal: the plain version on 4 x 256^2, the library's own
+    form at the bench geometry."""
+    import dataclasses
+
+    from oclcomputervision_tpu_torch.kernels import raisr as kr
+    from oclcomputervision_tpu_torch.kernels import upscale as ku
+    from oclcomputervision_tpu_torch.ops.raisr import plane_geometry
+    from oclcomputervision_tpu_torch.utils import load_gray
+    from oclcomputervision_tpu_torch.utils.config import RaisrConfig
+
+    rng = np.random.default_rng(0)
+    base = load_gray("lenna.png")
+    cases = []
+    for change, (n, lr) in RAISR_INPUTS[kernel]:
+        cfg = dataclasses.replace(RaisrConfig(), **change)
+        s, fl = cfg.scale, cfg.filter_len
+        tile = np.tile(base, (-(-lr // base.shape[0]), -(-lr // base.shape[1])))[:lr, :lr]
+        x = np.stack([np.clip(np.roll(tile.astype(np.int16) + rng.integers(-8, 9, tile.shape),
+                                      rng.integers(0, 512, 2), (0, 1)), 0, 255)
+                      for _ in range(n)]).astype(np.uint8)
+        x01 = torch.from_numpy(x).to(device).float() / torch.tensor(255.0, device=device)
+        geo = plane_geometry(lr, lr, cfg)
+        up = ku.upscale_planes_kernel(x01, cfg, geo.hq, geo.wq, geo.hp)
+        del x01
+        nbk = cfg.num_angle * cfg.num_strength * cfg.num_coherence
+        ss = s * s
+        shape = (n, ss, geo.h2p, geo.w2p)
+        tag = f"x{s} fl{fl} gl{cfg.gauss_len} {n}x{lr}^2"
+        stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+        if kernel == "raisr_hash_generic":
+            prm = torch.from_numpy(kr.hash_params_generic(cfg)).to(device)
+            out = torch.empty(shape, dtype=torch.int32, device=device)
+
+            def run(lib, cfg=cfg, up=up, geo=geo, prm=prm, out=out):
+                _, fn = entry(lib, "raisr_hash_generic")
+                _check(fn(up.data_ptr(), out.data_ptr(), prm.data_ptr(), up.shape[0], cfg.scale,
+                          cfg.gauss_len, len(cfg.strength_quantizers),
+                          len(cfg.coherence_quantizers), cfg.num_angle, cfg.num_strength,
+                          cfg.num_coherence, geo.hp, up.shape[2], up.shape[3], geo.h2p,
+                          geo.w2p, stream()))
+                return out
+
+            small = n * lr * lr <= 4 * 256 * 256
+            want = (kr.hash_planes if small else kr.hash_planes_kernel)(
+                up, cfg, geo.hp, geo.h2p, geo.w2p)
+        else:
+            bank_np = rng.normal(0.0, 0.02, (cfg.num_filters, fl, fl)).astype(np.float32)
+            bank_np[:, fl // 2, fl // 2] += 1.0
+            filters = torch.from_numpy(bank_np).to(device)
+            hb = kr.hash_planes_kernel(up, cfg, geo.hp, geo.h2p, geo.w2p)
+            res = kr._bank_rows(filters, cfg, 2 * kr.generic_row_words(fl))[0]
+            l2 = kr._bank_rows(filters, cfg, -(-fl * fl // 8) * 8)[0]
+            taps = kr._tap_table_on(s, fl, up.device)
+            out = torch.empty(shape, dtype=torch.float32, device=device)
+
+            def run(lib, cfg=cfg, up=up, hb=hb, res=res, l2=l2, taps=taps, out=out, nbk=nbk,
+                    geo=geo):
+                name, fn = entry(lib, "raisr_apply_generic")
+                s, fl = cfg.scale, cfg.filter_len
+                common = (up.shape[0], hb.shape[0], s, fl, geo.hp, up.shape[2], up.shape[3],
+                          geo.h2p, geo.w2p, nbk)
+                if name == "ocvk_raisr_apply_generic":
+                    _check(fn(up.data_ptr(), hb.data_ptr(), res.data_ptr(), taps.data_ptr(),
+                              out.data_ptr(), *common, kr.generic_row_words(fl),
+                              kr.generic_apply_phases(s, fl, nbk), stream()))
+                else:
+                    _check(fn(up.data_ptr(), hb.data_ptr(), l2.data_ptr(), out.data_ptr(),
+                              *common, l2.shape[-1], stream()))
+                return out
+
+            small = n * lr * lr <= 4 * 256 * 256
+            want = (kr.apply_filters_planes if small else kr.apply_filters_planes_kernel)(
+                up, hb, filters, cfg)
+        cases.append((tag, run, want, "the plain version" if small else "the library's form"))
+    return cases
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernel", choices=sorted(ENTRY))
+    ap.add_argument("kernel", choices=sorted(ENTRIES))
     ap.add_argument("forms", nargs="+", help="LABEL=SOURCE or LABEL=SOURCE|OLD|NEW[|OLD|NEW...]")
     args = ap.parse_args()
     device = require_cuda()
-    case = blend_case if args.kernel == "blend_blocks" else round_case
-    run, want = case(device)
-    fns = {}
+    if args.kernel == "blend_blocks":
+        cases = blend_case(device)
+    elif args.kernel == "me_fast_round":
+        cases = round_case(device)
+    else:
+        cases = raisr_cases(device, args.kernel)
+    libs = {}
     for form in args.forms:
         label, spec = form.split("=", 1)
-        fn = getattr(build_form(label, spec), ENTRY[args.kernel])
-        fn.argtypes = _build._SIGNATURES[ENTRY[args.kernel]]
-        fn.restype = ctypes.c_int
-        got = run(fn)
-        torch.cuda.synchronize()
-        same = torch.equal(got, want)
-        print(f"{label}: {'equal to' if same else 'DIFFERENT from'} the plain version")
-        fns[label] = fn
+        libs[label] = build_form(label, spec)
+        for tag, run, want, ref in cases:
+            got = run(libs[label])
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            print(f"{label} {tag}: {'equal to' if same else 'DIFFERENT from'} {ref}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
-    times = {label: [] for label in fns}
-    order = list(fns)
-    for turn in range(6):
-        for label in (order if turn % 2 == 0 else order[::-1]):
-            ms = kernel_ms(lambda fn=fns[label]: run(fn), args.kernel)
-            times[label].append(ms)
-            print(f"[{card}] {args.kernel} {label} turn {turn}: {ms:.4f} ms")
-    print(json.dumps({"kernel": args.kernel, "card": card,
-                      "median_ms": {k: statistics.median(v) for k, v in times.items()}}))
+    medians = {}
+    for tag, run, _, _ in cases:
+        times = {label: [] for label in libs}
+        order = list(libs)
+        for turn in range(6):
+            for label in (order if turn % 2 == 0 else order[::-1]):
+                ms = kernel_ms(lambda lib=libs[label]: run(lib), args.kernel)
+                times[label].append(ms)
+                print(f"[{card}] {args.kernel} {tag} {label} turn {turn}: {ms:.4f} ms")
+        medians[tag] = {k: statistics.median(v) for k, v in times.items()}
+    print(json.dumps({"kernel": args.kernel, "card": card, "median_ms": medians}))
     return 0
 
 

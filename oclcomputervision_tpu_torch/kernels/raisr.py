@@ -12,7 +12,9 @@ Ports of ``oclcomputervision_tpu/ops/pallas/raisr_pallas.py``:
 - apply: ``_apply_phase`` / ``apply_filters_planes``.
   ``apply_filters_planes`` is the plain version; ``apply_filters_planes_kernel``
   wraps ``csrc/raisr_apply.cu`` (filter length 11 at scales 2-4, the bank in
-  shared memory) and ``csrc/raisr_apply_generic.cu`` (any other config).
+  shared memory), ``csrc/raisr_apply_generic.cu`` (any other config whose
+  bank fits shared memory one phase at a time) and
+  ``csrc/raisr_apply_generic_l2.cu`` (a bank too large for that).
   Numerics of the TPU kernel: taps and bank rounded to bf16, products (exact
   in f32) summed in f32. The plain version and the kernels sum the taps in
   the same order.
@@ -143,15 +145,25 @@ def hash_planes(y_planes: torch.Tensor, cfg, hp: int, h2p: int, w2p: int) -> tor
 HASH_TAPS = 9  # csrc/raisr_hash.cu's kTaps: the blur length it is compiled for
 HASH_MAX_QUANT = 4  # csrc/raisr_hash.cu's kMaxQuant
 HASH_SCALES = (2, 3, 4)
+HASH_GENERIC_COLS = 128  # csrc/raisr_hash_generic.cu's kThreads: HR columns of a strip and its halo
 
 
 def hash_form(cfg) -> str:
     """The hash kernel ``cfg`` runs, by its launch count's name: the compiled
     form (``csrc/raisr_hash.cu``) for blur length 9 at scales 2-4 with at
-    most 4 quantizers of a kind, the generic form otherwise."""
+    most 4 quantizers of a kind, the generic form otherwise. Raises where
+    the generic form's strip of HASH_GENERIC_COLS columns, less the blur's
+    reach on each side, holds no output column of every phase
+    (s + 2 (gauss_len // 2) > 128: from scale 19 at the widest blur the
+    plane halo admits)."""
+    s, g = cfg.scale, cfg.gauss_len // 2
     nq = max(len(cfg.strength_quantizers), len(cfg.coherence_quantizers))
-    compiled = cfg.gauss_len == HASH_TAPS and cfg.scale in HASH_SCALES and nq <= HASH_MAX_QUANT
-    return "raisr_hash" if compiled else "raisr_hash_generic"
+    if cfg.gauss_len == HASH_TAPS and s in HASH_SCALES and nq <= HASH_MAX_QUANT:
+        return "raisr_hash"
+    if s + 2 * g > HASH_GENERIC_COLS:
+        raise ValueError(f"the generic hash takes scale + 2 (gauss_len // 2) <= "
+                         f"{HASH_GENERIC_COLS}, got scale {s} and gauss_len {cfg.gauss_len}")
+    return "raisr_hash_generic"
 
 
 class HashParams(ctypes.Structure):
@@ -312,15 +324,90 @@ def apply_smem(s: int, nbucket: int) -> int:
     return 4 * bank_words + 2 * s * s * (16 + 2 * reach) * (64 + 8)
 
 
+# csrc/raisr_apply_generic.cu's tile (plane rows and columns) and its most
+# resident phases (256 threads each, 1024 a block)
+APPLY_TILE = (16, 64)
+APPLY_MAX_PHASES = 4
+
+
+def generic_row_words(fl: int) -> int:
+    """32-bit words per filter row of the generic apply's bank: fl*fl bf16
+    and zero padding to an odd word count ((fl*fl + 1) / 2 for odd fl, one
+    word more for even fl), so that one tap of rows that differ mod 32 lies
+    in different shared-memory banks."""
+    w = (fl * fl + 1) // 2
+    return w if w % 2 else w + 1
+
+
+def generic_tile_words(s: int, fl: int) -> int:
+    """Words of ``csrc/raisr_apply_generic.cu``'s staged bf16 tile (its
+    ``tile_geometry``): s*s planes of APPLY_TILE plus the filter's reach R
+    on each side, rows of 32 + padL words (padL = R rounded up to even)
+    padded to an odd pitch."""
+    reach = -(-(fl // 2) // s)
+    half = APPLY_TILE[1] // 2 + (reach + 1) // 2 * 2
+    pitch = half + 1 if half % 2 == 0 else half + 2
+    return s * s * (APPLY_TILE[0] + 2 * reach) * pitch
+
+
+def generic_apply_smem(s: int, fl: int, nbucket: int, phases: int) -> int:
+    """Dynamic shared memory of the generic apply's launch with ``phases``
+    resident phases (that file's ``smem_bytes``): their banks (rounded up to
+    16 bytes), their tap tables (a word offset and a shift per tap, padded
+    to an even tap count) and the tile."""
+    bank = -(-phases * nbucket * generic_row_words(fl) // 4) * 4
+    taps = phases * -(-fl * fl // 2) * 4
+    return 4 * (bank + taps + generic_tile_words(s, fl))
+
+
+def generic_apply_phases(s: int, fl: int, nbucket: int) -> int:
+    """Resident phases of a generic apply block: the most (at most
+    APPLY_MAX_PHASES and s*s) whose banks fit beside the tile in a block's
+    shared memory, evened out over the sets of phases that cover all s*s;
+    0 when not even one phase fits (the L2 form runs the config)."""
+    most = 0
+    for p in range(1, min(APPLY_MAX_PHASES, s * s) + 1):
+        if generic_apply_smem(s, fl, nbucket, p) <= APPLY_SMEM_LIMIT:
+            most = p
+    if not most:
+        return 0
+    nsets = -(-(s * s) // most)
+    return -(-(s * s) // nsets)
+
+
+def generic_tap_table(s: int, fl: int) -> np.ndarray:
+    """int32 [s*s, fl*fl, 3]: per phase t = (py, px) and tap q = ti*fl + tj,
+    the plane a*s + b it reads and its plane row and column offset
+    (floor((py - m + ti) / s), floor((px - m + tj) / s)), m = fl // 2: the
+    generic apply's taps, ``ops/raisr._tap_tables`` without the halo."""
+    m = fl // 2
+    t = np.arange(s * s)
+    vr = (t // s)[:, None] - m + np.arange(fl)[None, :]  # [t, ti]
+    vc = (t % s)[:, None] - m + np.arange(fl)[None, :]  # [t, tj]
+    out = np.empty((s * s, fl, fl, 3), np.int32)
+    out[..., 0] = (vr % s)[:, :, None] * s + (vc % s)[:, None, :]
+    out[..., 1] = (vr // s)[:, :, None]
+    out[..., 2] = (vc // s)[:, None, :]
+    return out.reshape(s * s, fl * fl, 3)
+
+
+@functools.lru_cache(maxsize=8)
+def _tap_table_on(s: int, fl: int, device) -> torch.Tensor:
+    return torch.from_numpy(generic_tap_table(s, fl)).to(device)
+
+
 def apply_form(cfg, w2p: int) -> str:
     """The apply kernel ``cfg`` runs, by its launch count's name: the
     compiled form (``csrc/raisr_apply.cu``) for filter length 11 at scales
     2-4 when its resident banks fit a block's shared memory and the plane
-    width is a multiple of 4 (every plane geometry's is), the generic form
-    otherwise."""
-    compiled = (cfg.filter_len == APPLY_TAPS and cfg.scale in APPLY_SCALES and w2p % 4 == 0
-                and apply_smem(cfg.scale, _num_buckets(cfg)) <= APPLY_SMEM_LIMIT)
-    return "raisr_apply" if compiled else "raisr_apply_generic"
+    width is a multiple of 4 (every plane geometry's is); otherwise the
+    generic form (any width) when one phase's bank fits beside its tile,
+    and the L2 form (``csrc/raisr_apply_generic_l2.cu``) when it does not."""
+    s, fl, nbk = cfg.scale, cfg.filter_len, _num_buckets(cfg)
+    if (fl == APPLY_TAPS and s in APPLY_SCALES and w2p % 4 == 0
+            and apply_smem(s, nbk) <= APPLY_SMEM_LIMIT):
+        return "raisr_apply"
+    return "raisr_apply_generic" if generic_apply_phases(s, fl, nbk) else "raisr_apply_generic_l2"
 
 
 # laid-out banks, newest last: key -> (weak reference to the filters, bank)
@@ -331,9 +418,10 @@ _BANKS_KEPT = 8
 def _bank_rows(filters: torch.Tensor, cfg, stride: int = BANK_ROW_STRIDE) -> tuple[torch.Tensor, int]:
     """The bank as the apply kernels read it: per-phase bf16 rows
     [s*s, buckets, stride], ``phase_rows`` followed by zero padding. The
-    compiled form's stride of 122 (an odd word count) puts one tap of
-    different rows on different shared-memory banks; the generic form reads
-    rows of fl*fl padded to a multiple of 8 taps, 16 bytes at a time.
+    compiled form's stride of 122 and the generic form's 2 *
+    ``generic_row_words`` (odd word counts) put one tap of different rows
+    on different shared-memory banks; the L2 form reads rows of fl*fl
+    padded to a multiple of 8 taps, 16 bytes at a time.
 
     Built once per bank: the result is kept for this very tensor (its
     storage address, version counter, device and the scale) and reused until
@@ -382,16 +470,27 @@ def apply_filters_planes_kernel(
     if rows < h2p + 2 * hp or wq < w2p + 2 * hp:
         raise ValueError(f"planes {tuple(planes.shape)} lack the {hp}-plane halo")
     form = apply_form(cfg, w2p)
+    nbk = _num_buckets(cfg)
+    out = torch.empty((nimg, ss, h2p, w2p), dtype=torch.float32, device=planes.device)
+    if form == "raisr_apply_generic":
+        bank, stride = _bank_rows(filters, cfg, 2 * generic_row_words(fl))
+        launch(
+            form, f"ocvk_{form}", planes.device,
+            planes.data_ptr(), bucket_planes.data_ptr(), bank.data_ptr(),
+            _tap_table_on(s, fl, planes.device).data_ptr(), out.data_ptr(),
+            nimg, nb, s, fl, hp, rows, wq, h2p, w2p, nbk, stride // 2,
+            generic_apply_phases(s, fl, nbk),
+        )
+        return out
     if form == "raisr_apply":
         bank, stride = _bank_rows(filters, cfg)
     else:
         if nimg * ss > 65535:
-            raise ValueError(f"{nimg} images of {ss} phases exceed the generic apply's grid")
+            raise ValueError(f"{nimg} images of {ss} phases exceed the L2 apply's grid")
         bank, stride = _bank_rows(filters, cfg, -(-fl * fl // 8) * 8)
-    out = torch.empty((nimg, ss, h2p, w2p), dtype=torch.float32, device=planes.device)
     launch(
         form, f"ocvk_{form}", planes.device,
         planes.data_ptr(), bucket_planes.data_ptr(), bank.data_ptr(), out.data_ptr(),
-        nimg, nb, s, fl, hp, rows, wq, h2p, w2p, _num_buckets(cfg), stride,
+        nimg, nb, s, fl, hp, rows, wq, h2p, w2p, nbk, stride,
     )
     return out

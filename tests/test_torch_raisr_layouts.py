@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from oclcomputervision_tpu.ops import raisr as jax_raisr
+from oclcomputervision_tpu.ops.pallas import raisr_pallas
 from oclcomputervision_tpu.utils.config import RaisrConfig
 from oclcomputervision_tpu_torch.kernels import raisr as kraisr
 from oclcomputervision_tpu_torch.kernels import upscale as kupscale
@@ -237,6 +238,8 @@ def test_shipped_x2_apply_fills_but_fits_shared_memory():
 
 @pytest.mark.parametrize("fl", [7, 11, 13])
 def test_generic_bank_rows_pad_to_16_bytes(fl):
+    # the L2 form's rows (csrc/raisr_apply_generic_l2.cu reads 8 taps per
+    # 16-byte load)
     cfg = dataclasses.replace(RaisrConfig(), filter_len=fl)
     rng = np.random.default_rng(fl)
     filters = torch.from_numpy(rng.standard_normal((cfg.num_filters, fl, fl)).astype(np.float32))
@@ -264,3 +267,160 @@ def test_wrappers_refuse_a_tensor_on_neither_cpu_nor_cuda(wrapper):
             kraisr.apply_filters_planes_kernel(
                 meta, torch.empty((1, 25, geo.h2p, geo.w2p), dtype=torch.int32, device="meta"),
                 torch.empty((cfg.num_filters, 11, 11), device="meta"), cfg)
+
+
+# bucket counts from (angles, strengths, coherences): 27 to 432
+BUCKETS = [(3, 3, 3), (8, 3, 3), (16, 3, 3), (24, 3, 3), (25, 3, 3), (24, 4, 3), (24, 6, 3)]
+
+
+def _admitted(s, fl):
+    """Whether the plane geometry takes scale s and filter length fl."""
+    try:
+        port.plane_geometry(64, 128, dataclasses.replace(RaisrConfig(), scale=s, filter_len=fl))
+    except ValueError:
+        return False
+    return True
+
+
+@pytest.mark.parametrize("s", [2, 3, 4, 5, 6])
+def test_generic_apply_planner_fits_shared_memory(s):
+    # csrc/raisr_apply_generic.cu: 1-4 resident phases (256 threads each)
+    # whose banks, tap tables and tile fit a block, or none and the L2 form
+    seen = set()
+    for fl in range(1, 18):
+        if not _admitted(s, fl):
+            continue
+        for na, ns, nc in BUCKETS:
+            nbk = na * ns * nc
+            p = kraisr.generic_apply_phases(s, fl, nbk)
+            if p:
+                assert 1 <= p <= min(kraisr.APPLY_MAX_PHASES, s * s)
+                assert kraisr.generic_apply_smem(s, fl, nbk, p) <= kraisr.APPLY_SMEM_LIMIT
+                # the sets of phases cover all s*s phases with the fewest blocks
+                most = max(q for q in range(1, min(4, s * s) + 1)
+                           if kraisr.generic_apply_smem(s, fl, nbk, q) <= kraisr.APPLY_SMEM_LIMIT)
+                assert -(-(s * s) // p) == -(-(s * s) // most)
+            else:
+                assert kraisr.generic_apply_smem(s, fl, nbk, 1) > kraisr.APPLY_SMEM_LIMIT
+            seen.add(bool(p))
+    assert True in seen
+
+
+@pytest.mark.parametrize("change, form, phases", [
+    ({"filter_len": 13}, "raisr_apply_generic", 2),
+    ({"filter_len": 7, "gauss_len": 7, "num_strength": 6}, "raisr_apply_generic", 4),
+    ({"scale": 5}, "raisr_apply_generic", 3),
+    ({"scale": 6, "filter_len": 17}, "raisr_apply_generic", 1),
+    # 145 words x 432 rows = 250,560 bytes: one phase's bank fits no block
+    ({"filter_len": 17, "num_strength": 6}, "raisr_apply_generic_l2", 0),
+    ({"filter_len": 16, "num_strength": 6}, "raisr_apply_generic_l2", 0),
+    ({"filter_len": 15, "num_strength": 6}, "raisr_apply_generic", 1),
+])
+def test_apply_form_takes_the_l2_form_exactly_when_a_bank_does_not_fit(change, form, phases):
+    cfg = dataclasses.replace(RaisrConfig(), **change)
+    nbk = kraisr._num_buckets(cfg)
+    assert kraisr.apply_form(cfg, 128) == kraisr.apply_form(cfg, 126) == form
+    assert kraisr.generic_apply_phases(cfg.scale, cfg.filter_len, nbk) == phases
+    fits = kraisr.generic_apply_smem(cfg.scale, cfg.filter_len, nbk, 1) <= kraisr.APPLY_SMEM_LIMIT
+    assert fits == (form == "raisr_apply_generic")
+
+
+def test_generic_apply_l2_boundary_in_buckets():
+    # at x2 filter_len 17 the largest bank that still fits goes to the
+    # resident-bank form, one bucket more to the L2 form
+    words = kraisr.generic_row_words(17)
+    fit = max(n for n in range(1, 500)
+              if kraisr.generic_apply_smem(2, 17, n, 1) <= kraisr.APPLY_SMEM_LIMIT)
+    assert words == 145 and 216 < fit < 432
+    for n, form in ((fit, "raisr_apply_generic"), (fit + 1, "raisr_apply_generic_l2")):
+        cfg = dataclasses.replace(RaisrConfig(), filter_len=17, num_angle=n, num_strength=1,
+                                  num_coherence=1)
+        assert kraisr.apply_form(cfg, 128) == form
+
+
+@pytest.mark.parametrize("fl", [1, 2, 4, 7, 11, 13, 17])
+def test_generic_bank_rows_have_an_odd_word_stride(fl):
+    cfg = dataclasses.replace(RaisrConfig(), filter_len=fl)
+    words = kraisr.generic_row_words(fl)
+    assert words % 2 == 1 and fl * fl <= 2 * words <= fl * fl + 3
+    if fl % 2:
+        assert words == (fl * fl + 1) // 2
+    rng = np.random.default_rng(fl)
+    filters = torch.from_numpy(rng.standard_normal((cfg.num_filters, fl, fl)).astype(np.float32))
+    bank, stride = kraisr._bank_rows(filters, cfg, 2 * words)
+    assert stride == 2 * words and bank.shape == (4, 216, stride)
+    assert torch.equal(bank[..., : fl * fl], kraisr.phase_rows(filters, cfg))
+    assert not bank[..., fl * fl :].float().any()
+
+
+@pytest.mark.parametrize("s", [2, 3, 4, 5, 6])
+def test_generic_tap_table_is_the_plain_versions(s):
+    # the JAX kernel's tables (raisr_pallas._tap_tables at its plane halo),
+    # which the port's plain apply reads too
+    for fl in range(1, 18):
+        table = kraisr.generic_tap_table(s, fl)
+        assert table.dtype == np.int32 and table.shape == (s * s, fl * fl, 3)
+        hp = raisr_pallas.plane_halo(fl, s)
+        assert port.plane_halo(fl, s) == hp
+        for t in range(s * s):
+            py, px = divmod(t, s)
+            planes, offs = raisr_pallas._tap_tables(fl, s, py, px, hp)
+            assert table[t, :, 0].tolist() == planes
+            assert [(int(r) + hp, int(c) + hp) for r, c in table[t, :, 1:]] == offs
+            assert port._tap_tables(fl, s, py, px, hp) == (planes, offs)
+        # every offset stays inside the reach the kernel stages
+        reach = -(-(fl // 2) // s)
+        assert np.abs(table[..., 1:]).max() <= reach
+
+
+@pytest.mark.parametrize("change", [
+    {"gauss_len": 1}, {"gauss_len": 3}, {"gauss_len": 7}, {"gauss_len": 13, "scale": 3},
+    {"scale": 5}, {"strength_quantizers": (1e-5, 1e-4, 1e-3, 1e-2, 1e-1), "num_strength": 6},
+    {"coherence_quantizers": (), "num_coherence": 1},
+])
+def test_generic_hash_params_carry_taps_and_quantizers(change):
+    # what csrc/raisr_hash_generic.cu stages once per block: the f32 taps of
+    # _blur_k1, then the strength and the coherence quantizers
+    cfg = dataclasses.replace(RaisrConfig(), **change)
+    prm = kraisr.hash_params_generic(cfg)
+    gl, nsq = cfg.gauss_len, len(cfg.strength_quantizers)
+    k1 = jax_raisr._blur_k1(cfg)  # the JAX package's window, in f64
+    assert np.array_equal(port._blur_k1(cfg), k1)
+    assert prm.dtype == np.float32 and prm.shape == (gl + nsq + len(cfg.coherence_quantizers),)
+    assert np.array_equal(prm[:gl], k1.astype(np.float32))
+    assert np.array_equal(prm[:gl], prm[:gl][::-1])  # a symmetric window
+    assert np.array_equal(prm[gl : gl + nsq], np.float32(cfg.strength_quantizers))
+    assert np.array_equal(prm[gl + nsq :], np.float32(cfg.coherence_quantizers))
+
+
+def _hash_admitted(s, gl):
+    """Whether the plane geometry takes scale s and blur length gl."""
+    try:
+        port.plane_geometry(64, 128, dataclasses.replace(RaisrConfig(), scale=s, gauss_len=gl))
+    except ValueError:
+        return False
+    return True
+
+
+@pytest.mark.parametrize("s", [2, 3, 5, 6, 18, 19, 40, 122, 127, 129])
+def test_generic_hash_refuses_exactly_what_its_strip_cannot_hold(s):
+    # csrc/raisr_hash_generic.cu walks strips of 128 HR columns less the
+    # blur's reach on each side: every admitted config with s + 2 (gl // 2)
+    # <= 128 runs, every other one is refused before a launch
+    taken, refused = 0, 0
+    for gl in range(1, 6 * s + 4, 2):
+        if not _hash_admitted(s, gl):
+            continue
+        cfg = dataclasses.replace(RaisrConfig(), scale=s, gauss_len=gl)
+        if s + 2 * (gl // 2) <= kraisr.HASH_GENERIC_COLS:
+            assert kraisr.hash_form(cfg) in ("raisr_hash", "raisr_hash_generic")
+            taken += 1
+        else:
+            with pytest.raises(ValueError, match="generic hash"):
+                kraisr.hash_form(cfg)
+            refused += 1
+    # the plane halo (at most 4 planes) bounds the blur at 3s: scales up to
+    # 18 take every blur length it admits
+    assert taken + refused > 0
+    assert (refused > 0) == (s >= 19)
+    assert (taken > 0) == (s <= 127)

@@ -137,21 +137,21 @@ def test_kernel_build_inputs():
     assert names == [
         "apply_lut.cu", "blend_blocks.cu", "errors.cu", "hist256.cu", "hist_common.cuh",
         "hist_tiles.cu", "me_exact.cu", "me_fast_median.cu", "me_fast_round.cu",
-        "raisr_apply.cu", "raisr_apply_generic.cu", "raisr_hash.cu", "raisr_hash_generic.cu",
-        "upscale_planes.cu",
+        "raisr_apply.cu", "raisr_apply_generic.cu", "raisr_apply_generic_l2.cu", "raisr_hash.cu",
+        "raisr_hash_generic.cu", "upscale_planes.cu",
     ]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     # every wrapper's C entry point has declared argument types
     assert set(_build._SIGNATURES) == {
         "ocvk_upscale_planes", "ocvk_raisr_hash", "ocvk_raisr_apply",
-        "ocvk_raisr_hash_generic", "ocvk_raisr_apply_generic",
+        "ocvk_raisr_hash_generic", "ocvk_raisr_apply_generic", "ocvk_raisr_apply_generic_l2",
         "ocvk_hist256", "ocvk_apply_lut", "ocvk_hist_tiles", "ocvk_blend_blocks",
         "ocvk_me_exact", "ocvk_me_fast_round", "ocvk_me_fast_median",
     }
     assert set(_build.LAUNCHES) == {
         "upscale_planes", "raisr_hash", "raisr_apply",
         "upscale_planes_generic", "raisr_hash_generic", "raisr_apply_generic",
-        "hist256", "apply_lut", "hist_tiles", "blend_blocks",
+        "raisr_apply_generic_l2", "hist256", "apply_lut", "hist_tiles", "blend_blocks",
         "me_exact", "me_fast_round", "me_fast_median",
     }
 
