@@ -51,8 +51,8 @@ LAUNCHES = {
     "upscale_planes_generic": 0,
     "raisr_hash_generic": 0,
     "raisr_apply_generic": 0,
-    # the apply's form for a bank too large for shared memory
-    "raisr_apply_generic_l2": 0,
+    # the apply's form for a bank of which one phase does not fit a block
+    "raisr_apply_split": 0,
     "hist256": 0,
     "apply_lut": 0,
     "hist_tiles": 0,
@@ -77,7 +77,9 @@ _SIGNATURES = {
     # planes, buckets, bank, out, nimg, nb, s, fl, hp, rows, wq, h2p,
     # w2p, nbucket, row_stride, stream
     "ocvk_raisr_apply": [_VP] * 4 + [_I] * 11 + [_VP],
-    "ocvk_raisr_apply_generic_l2": [_VP] * 4 + [_I] * 11 + [_VP],
+    # planes, buckets, bank, plan, out, nimg, nb, s, fl, hp, rows, wq, h2p,
+    # w2p, nbucket, row_words, nsplit, q, maxp, stream
+    "ocvk_raisr_apply_split": [_VP] * 5 + [_I] * 14 + [_VP],
     # planes, buckets, bank, taps, out, nimg, nb, s, fl, hp, rows, wq, h2p,
     # w2p, nbucket, row_words, phases, stream
     "ocvk_raisr_apply_generic": [_VP] * 5 + [_I] * 12 + [_VP],
@@ -193,6 +195,9 @@ def library() -> ctypes.CDLL:
         # s, fl, nbucket, phases -> bytes (host only: no launch)
         lib.ocvk_raisr_apply_generic_smem.argtypes = [_I] * 4
         lib.ocvk_raisr_apply_generic_smem.restype = ctypes.c_longlong
+        # s, fl, nbucket, q, maxp -> bytes (host only: no launch)
+        lib.ocvk_raisr_apply_split_smem.argtypes = [_I] * 5
+        lib.ocvk_raisr_apply_split_smem.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 

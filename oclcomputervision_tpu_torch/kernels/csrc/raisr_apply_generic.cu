@@ -2,13 +2,13 @@
 // form: any scale and filter length, read at run time, with the bank
 // resident in shared memory.
 //
-// Replaces, with raisr_apply.cu and raisr_apply_generic_l2.cu, the TPU
-// kernel oclcomputervision_tpu/ops/pallas/raisr_pallas.py, _apply_phase
-// (body _make_kernel), which is written for any filter_len and scale.
+// Replaces, with raisr_apply.cu and raisr_apply_split.cu, the TPU kernel
+// oclcomputervision_tpu/ops/pallas/raisr_pallas.py, _apply_phase (body
+// _make_kernel), which is written for any filter_len and scale.
 // raisr_apply.cu is compiled for filter length 11 at scales 2-4;
 // kernels/raisr.apply_form sends every other config here when one phase's
 // bank and a tile fit a block's shared memory (generic_apply_phases), and to
-// raisr_apply_generic_l2.cu otherwise. The launches count as
+// raisr_apply_split.cu otherwise. The launches count as
 // raisr_apply_generic.
 //
 // Output pixel (y, x) of phase t = (py, px) of image n, as raisr_apply.cu:
@@ -22,12 +22,13 @@
 // What bounds it on the H100: as raisr_apply.cu, the shared-memory passes
 // of the filter-row loads (each pixel reads its own bucket's row, so the 32
 // lanes of a warp read 32 rows), then the tap loads, which here cannot come
-// from registers fixed at compile time. The one-thread-per-pixel form
-// (raisr_apply_generic_l2.cu) reads every tap and weight through L1:
-// 0.46 G taps/ms against raisr_apply.cu's 5.2.
+// from registers fixed at compile time. A one-thread-per-pixel form that
+// read every tap and weight through L1 did 0.46 G taps/ms against
+// raisr_apply.cu's 5.2.
 //
 // Design, raisr_apply.cu's carried over to a run-time scale and filter
-// length:
+// length (the tile, its staging and the tap loop in raisr_apply_tile.cuh,
+// which raisr_apply_split.cu shares):
 //  - The bank lives in shared memory: `phases` resident phases' rows
 //    (kernels/raisr.generic_apply_phases picks the most that fit beside the
 //    tile, at most 4), opted in to above 48 KB with cudaFuncSetAttribute.
@@ -72,87 +73,33 @@
 // take 128 registers a thread), and nothing at x5.
 // Measured at the bench geometry (NVIDIA H100 80GB HBM3, 700 W,
 // kernels/forms.py, 16 x 1024^2): filter length 13 at x2 4.2281 ms, x5
-// 30.4729 ms; the one-thread-per-pixel form (raisr_apply_generic_l2.cu)
-// 22.9982 and 106.0459 ms (PERF.md).
+// 30.4729 ms; the one-thread-per-pixel form 22.9982 and 106.0459 ms
+// (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "raisr_apply_tile.cuh"
+
 namespace {
 
-constexpr int kGroup = 256;    // threads that compute one phase of a tile
+using namespace ocvk_apply;
+
 constexpr int kMaxPhases = 4;  // resident phases: at most 1024 threads
-constexpr int kTileH = 16;     // plane rows per tile
-constexpr int kTileW = 64;     // plane columns per tile
-constexpr int kPx = 4;         // adjacent pixels per thread
 constexpr int kPrefetch = 8;   // tile words per thread loaded ahead into registers
-constexpr int kSmemLimit = 232448;
-static_assert(kTileH * kTileW == kGroup * kPx, "one tile pass per phase");
 
-__device__ __forceinline__ float bf16_lo(unsigned int word) {
-  return __uint_as_float(word << 16);
-}
-__device__ __forceinline__ float bf16_hi(unsigned int word) {
-  return __uint_as_float(word & 0xffff0000u);
-}
-
-// The staged tile of s*s planes: reach R plane rows and columns around the
-// 16 x 64 pixels, padL >= R columns (even) on each side, a row of
-// 32 + padL words padded to an odd pitch. kernels/raisr.generic_apply_smem
-// computes the same sizes in Python (to choose the form on any device);
-// ocvk_raisr_apply_generic_smem exports this file's, which chip_smoke.py
-// holds equal to it.
-struct Tile {
-  int reach, padl, half, pitch, eh, plane_words, words;
-};
-
-__host__ __device__ inline Tile tile_geometry(int s, int fl) {
-  Tile g;
-  g.reach = (fl / 2 + s - 1) / s;
-  g.padl = (g.reach + 1) / 2 * 2;
-  g.half = kTileW / 2 + g.padl;  // staged words per tile row
-  g.pitch = g.half % 2 == 0 ? g.half + 1 : g.half + 2;
-  g.eh = kTileH + 2 * g.reach;
-  g.plane_words = g.eh * g.pitch;
-  g.words = s * s * g.plane_words;
-  return g;
-}
-
-__host__ __device__ inline int row_words(int fl) {
-  const int w = (fl * fl + 1) / 2;
-  return w % 2 ? w : w + 1;
-}
+// kernels/raisr.generic_apply_smem computes the same sizes in Python (to
+// choose the form on any device); ocvk_raisr_apply_generic_smem exports
+// this file's, which chip_smoke.py holds equal to it.
+__host__ __device__ inline int row_words(int fl) { return odd_words(fl * fl); }
 
 __host__ __device__ inline int tap_stride(int fl) { return (fl * fl + 1) / 2 * 4; }
 
 __host__ __device__ inline long long smem_bytes(int s, int fl, int nbucket, int phases) {
   const long long bank = (static_cast<long long>(phases) * nbucket * row_words(fl) + 3) / 4 * 4;
-  return 4 * (bank + static_cast<long long>(phases) * tap_stride(fl) + tile_geometry(s, fl).words);
+  return 4 * (bank + static_cast<long long>(phases) * tap_stride(fl) +
+              tile_geometry(s, fl, s * s).words);
 }
-
-// Walks the staged words e = first, first + step, ... of a tile as (plane,
-// tile row, word column) without a division per word.
-struct Walker {
-  int p, y, cw;
-  __device__ void start(int e, const Tile& g) {
-    const int row = e / g.half;
-    cw = e - row * g.half;
-    p = row / g.eh;
-    y = row - p * g.eh;
-  }
-  __device__ void advance(int drow, int dcol, const Tile& g) {
-    cw += dcol;
-    y += drow;
-    if (cw >= g.half) {
-      cw -= g.half;
-      ++y;
-    }
-    while (y >= g.eh) {
-      y -= g.eh;
-      ++p;
-    }
-  }
-};
 
 __global__ void __launch_bounds__(kMaxPhases * kGroup, 1) raisr_apply_generic_kernel(
     const float* __restrict__ planes, const int* __restrict__ buckets,
@@ -165,7 +112,7 @@ __global__ void __launch_bounds__(kMaxPhases * kGroup, 1) raisr_apply_generic_ke
   const int ntap = fl * fl;
   const int rw = row_words(fl);
   const int tstride = tap_stride(fl);
-  const Tile g = tile_geometry(s, fl);
+  const Tile g = tile_geometry(s, fl, ss);
   const int nthreads = phases * kGroup;
   const int phase_words = nbucket * rw;
   unsigned int* bank_s = reinterpret_cast<unsigned int*>(smem);
@@ -179,15 +126,13 @@ __global__ void __launch_bounds__(kMaxPhases * kGroup, 1) raisr_apply_generic_ke
     // the block's phases are adjacent in the bank
     const unsigned int* src = bank + static_cast<size_t>(t0) * phase_words;
     for (int e = threadIdx.x; e < nph * phase_words; e += nthreads) bank_s[e] = src[e];
-    // taps [t][q] = (plane, row offset, column offset) -> element offset
-    // into the tile from a thread's pixel 0
+    // taps [t][q] = (plane, row offset, column offset) -> word offset and
+    // shift from a thread's pixel 0
     for (int e = threadIdx.x; e < nph * ntap; e += nthreads) {
       const int ph = e / ntap;
       const int q = e - ph * ntap;
-      const int* tq = taps + (static_cast<size_t>(t0 + ph) * ntap + q) * 3;
-      const int off = 2 * (tq[0] * g.plane_words + tq[1] * g.pitch) + tq[2];
-      tap_s[ph * tstride + 2 * q] = off >> 1;
-      tap_s[ph * tstride + 2 * q + 1] = (off & 1) * 16;
+      tap_entry(taps + (static_cast<size_t>(t0 + ph) * ntap + q) * 3, g,
+                tap_s + ph * tstride + 2 * q);
     }
   }
   const int group = threadIdx.x / kGroup;  // warp-uniform: one phase per group
@@ -204,81 +149,19 @@ __global__ void __launch_bounds__(kMaxPhases * kGroup, 1) raisr_apply_generic_ke
   const size_t plane_px = static_cast<size_t>(h2p) * w2p;
   const int ntiles = nimg * tiles_y * tiles_x;
   const bool vec = w2p % 4 == 0;
-
-  const int stage_words = ss * g.eh * g.half;
-  const int drow = nthreads / g.half;
-  const int dcol = nthreads - drow * g.half;
-  const size_t plane = static_cast<size_t>(rows) * wq;
-  // the first kPrefetch words per thread of a tile travel through registers:
-  // loaded before the previous tile is computed, stored after it
-  float pf[kPrefetch][2];
-  auto load_word = [&](const float* img, int i0, int j0, const Walker& w, float& v0, float& v1) {
-    const int r = i0 + hp - g.reach + w.y;
-    const int c = j0 + hp - g.padl + 2 * w.cw;
-    v0 = 0.0f;
-    v1 = 0.0f;
-    if (r < rows) {
-      const float* src = img + w.p * plane + static_cast<size_t>(r) * wq;
-      if (c >= 0 && c < wq) v0 = __ldg(src + c);
-      if (c + 1 >= 0 && c + 1 < wq) v1 = __ldg(src + c + 1);
-    }
-  };
-  auto tile_origin = [&](int tile_id, const float*& img, int& i0, int& j0) {
-    const int tx = tile_id % tiles_x;
-    const int rest = tile_id / tiles_x;
-    i0 = (rest % tiles_y) * kTileH;
-    j0 = tx * kTileW;
-    img = planes + static_cast<size_t>(rest / tiles_y) * ss * plane;
-  };
-  auto fetch = [&](int tile_id) {
-    const float* img;
-    int i0, j0;
-    tile_origin(tile_id, img, i0, j0);
-    Walker w;
-    w.start(threadIdx.x, g);
-#pragma unroll
-    for (int it = 0; it < kPrefetch; ++it) {
-      if (threadIdx.x + it * nthreads < stage_words) load_word(img, i0, j0, w, pf[it][0], pf[it][1]);
-      w.advance(drow, dcol, g);
-    }
-  };
-  auto put = [&](const Walker& w, float v0, float v1) {
-    const __nv_bfloat162 pk = __floats2bfloat162_rn(v0, v1);  // .x, the even column, is the low half
-    tile_w[w.p * g.plane_words + w.y * g.pitch + w.cw] = *reinterpret_cast<const unsigned int*>(&pk);
-  };
-  auto stage = [&](int tile_id) {
-    Walker w;
-    w.start(threadIdx.x, g);
-#pragma unroll
-    for (int it = 0; it < kPrefetch; ++it) {
-      if (threadIdx.x + it * nthreads < stage_words) put(w, pf[it][0], pf[it][1]);
-      w.advance(drow, dcol, g);
-    }
-    // what did not fit the registers, loaded and stored now
-    const int rest = threadIdx.x + kPrefetch * nthreads;
-    if (rest < stage_words) {
-      const float* img;
-      int i0, j0;
-      tile_origin(tile_id, img, i0, j0);
-      w.start(rest, g);
-      for (int e = rest; e < stage_words; e += nthreads) {
-        float v0, v1;
-        load_word(img, i0, j0, w, v0, v1);
-        put(w, v0, v1);
-        w.advance(drow, dcol, g);
-      }
-    }
-  };
+  Stager<kPrefetch, false> st(planes, nullptr, tile_w, g, s, hp, rows, wq, tiles_y, tiles_x,
+                              nthreads);
+  st.set_planes(ss);
 
   int tile_id = blockIdx.x / nsets;
   if (tile_id < ntiles) {
-    fetch(tile_id);
-    stage(tile_id);
+    st.fetch(tile_id);
+    st.stage(tile_id);
   }
   for (; tile_id < ntiles; tile_id += nstreams) {
     __syncthreads();  // the tile (and, the first time, the bank and taps) is in place
     const int next = tile_id + nstreams;
-    if (next < ntiles) fetch(next);
+    if (next < ntiles) st.fetch(next);
 
     const int tx = tile_id % tiles_x;
     const int rest = tile_id / tiles_x;
@@ -287,60 +170,16 @@ __global__ void __launch_bounds__(kMaxPhases * kGroup, 1) raisr_apply_generic_ke
     const int gj = tx * kTileW + kPx * lx;
     if (computes && gi < h2p && gj < w2p) {
       const size_t o = static_cast<size_t>(t) * plane_px + static_cast<size_t>(gi) * w2p + gj;
-      const int* bmap = buckets + static_cast<size_t>(n % nb) * ss * plane_px + o;
       float* optr = out + static_cast<size_t>(n) * ss * plane_px + o;
       int bk[kPx];
-      if (vec) {
-        const int4 b4 = *reinterpret_cast<const int4*>(bmap);
-        bk[0] = b4.x;
-        bk[1] = b4.y;
-        bk[2] = b4.z;
-        bk[3] = b4.w;
-      } else {
-#pragma unroll
-        for (int k = 0; k < kPx; ++k) bk[k] = gj + k < w2p ? bmap[k] : -1;
-      }
-      const unsigned int* wrow[kPx];
       float acc[kPx];
-#pragma unroll
-      for (int k = 0; k < kPx; ++k) {
-        const bool ok = bk[k] >= 0 && bk[k] < nbucket;
-        wrow[k] = rows_s + (ok ? bk[k] * rw : 0);
-        bk[k] = ok;
-        acc[k] = 0.0f;
-      }
-      const unsigned int* tbase = tile_w + (base >> 1);
-      // taps in order q = 0 .. fl*fl - 1, two per weight word
-      for (int q = 0; q < ntap; q += 2) {
-        unsigned int ww[kPx];
-#pragma unroll
-        for (int k = 0; k < kPx; ++k) ww[k] = wrow[k][q >> 1];
-        const int4 off = *reinterpret_cast<const int4*>(offs + 2 * q);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (h == 1 && q + 1 >= ntap) break;
-          const unsigned int* tw = tbase + (h ? off.z : off.x);
-          const unsigned int sh = h ? off.w : off.y;
-          const unsigned int a = tw[0], b = tw[1], c = tw[2];
-          const unsigned int u0 = __funnelshift_r(a, b, sh), u1 = __funnelshift_r(b, c, sh);
-          const float v[kPx] = {bf16_lo(u0), bf16_hi(u0), bf16_lo(u1), bf16_hi(u1)};
-#pragma unroll
-          for (int k = 0; k < kPx; ++k)
-            acc[k] = fmaf(v[k], h ? bf16_hi(ww[k]) : bf16_lo(ww[k]), acc[k]);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kPx; ++k) acc[k] = bk[k] ? acc[k] : 0.0f;
-      if (vec) {
-        *reinterpret_cast<float4*>(optr) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-      } else {
-#pragma unroll
-        for (int k = 0; k < kPx; ++k)
-          if (gj + k < w2p) optr[k] = acc[k];
-      }
+      load_pixels(buckets + static_cast<size_t>(n % nb) * ss * plane_px + o, optr, vec, w2p - gj,
+                  false, bk, acc);
+      apply_pixels(bk, acc, optr, vec, w2p - gj, rows_s, rw, nbucket, tile_w + (base >> 1), offs,
+                   ntap, true);
     }
     __syncthreads();  // every reader of the tile is done
-    if (next < ntiles) stage(next);
+    if (next < ntiles) st.stage(next);
   }
 }
 
@@ -362,7 +201,7 @@ extern "C" int ocvk_raisr_apply_generic(const float* planes, const int* buckets,
                                         int phases, void* stream) {
   if (s < 1 || fl < 1 || nbucket < 1 || rwords != row_words(fl) || phases < 1 ||
       phases > kMaxPhases || phases > s * s || nb < 1 || nimg % nb != 0 ||
-      hp < tile_geometry(s, fl).reach || (reinterpret_cast<uintptr_t>(bank) & 3u) != 0) {
+      hp < tile_geometry(s, fl, 1).reach || (reinterpret_cast<uintptr_t>(bank) & 3u) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long smem = smem_bytes(s, fl, nbucket, phases);

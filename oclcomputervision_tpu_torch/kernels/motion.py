@@ -359,6 +359,34 @@ def fast_round_kernel(
     return out[0], out[1]
 
 
+def _launch_median(dy, dx, out, flow) -> None:
+    """One launch of ``csrc/me_fast_median.cu``: the median of the state
+    (dy, dx) into the two planes of ``out``, or, with ``flow``, into it."""
+    b, h, w = dy.shape
+    launch(
+        "me_fast_median", "ocvk_me_fast_median", dy.device,
+        dy.data_ptr(), dx.data_ptr(), None if flow is not None else out[0].data_ptr(),
+        None if flow is not None else out[1].data_ptr(),
+        None if flow is None else flow.data_ptr(), b, h, w,
+    )
+
+
+def median3x3_kernel(dy: torch.Tensor, dx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Wrapper of one median: ``_median3x3`` of both planes for CPU tensors;
+    for CUDA tensors (two contiguous int32 [B, H, W] planes) one launch of
+    the median kernel, the filtered state returned as int32 planes."""
+    if dy.device.type == "cpu":
+        return _median3x3(dy), _median3x3(dx)
+    for name, t in (("dy", dy), ("dx", dx)):
+        require_cuda_tensor(t, name, torch.int32, 3)
+    if dx.shape != dy.shape or dx.device != dy.device:
+        raise ValueError(f"dx {tuple(dx.shape)} must be dy's {tuple(dy.shape)} on {dy.device}")
+    _check_grid(*dy.shape)
+    out = torch.empty((2, *dy.shape), dtype=torch.int32, device=dy.device)
+    _launch_median(dy, dx, out, None)
+    return out[0], out[1]
+
+
 def me_fast_kernel(
     f0: torch.Tensor,
     f1: torch.Tensor,
@@ -396,12 +424,6 @@ def me_fast_kernel(
     state = torch.empty((2, b, h, w), dtype=torch.int32, device=dev)
     for r, step in enumerate(steps):
         _launch_round(f0, f1, dy, dx, moved, patch_size, step, costfn)
-        last = r == len(steps) - 1
-        launch(
-            "me_fast_median", "ocvk_me_fast_median", dev,
-            moved[0].data_ptr(), moved[1].data_ptr(),
-            None if last else state[0].data_ptr(), None if last else state[1].data_ptr(),
-            flow.data_ptr() if last else None, b, h, w,
-        )
+        _launch_median(moved[0], moved[1], state, flow if r == len(steps) - 1 else None)
         dy, dx = state[0], state[1]
     return flow

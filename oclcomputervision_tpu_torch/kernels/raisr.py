@@ -14,7 +14,8 @@ Ports of ``oclcomputervision_tpu/ops/pallas/raisr_pallas.py``:
   wraps ``csrc/raisr_apply.cu`` (filter length 11 at scales 2-4, the bank in
   shared memory), ``csrc/raisr_apply_generic.cu`` (any other config whose
   bank fits shared memory one phase at a time) and
-  ``csrc/raisr_apply_generic_l2.cu`` (a bank too large for that).
+  ``csrc/raisr_apply_split.cu`` (any config at all: a phase's bank split by
+  tap range, ``split_plan``).
   Numerics of the TPU kernel: taps and bank rounded to bf16, products (exact
   in f32) summed in f32. The plain version and the kernels sum the taps in
   the same order.
@@ -32,6 +33,7 @@ import ctypes
 import functools
 import math
 import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -330,24 +332,31 @@ APPLY_TILE = (16, 64)
 APPLY_MAX_PHASES = 4
 
 
-def generic_row_words(fl: int) -> int:
-    """32-bit words per filter row of the generic apply's bank: fl*fl bf16
-    and zero padding to an odd word count ((fl*fl + 1) / 2 for odd fl, one
-    word more for even fl), so that one tap of rows that differ mod 32 lies
-    in different shared-memory banks."""
-    w = (fl * fl + 1) // 2
+def odd_words(taps: int) -> int:
+    """32-bit words per bank row of ``taps`` bf16 weights and zero padding
+    to an odd word count ((taps + 1) / 2, one word more if that is even), so
+    that one tap of rows that differ mod 32 lies in different shared-memory
+    banks (``csrc/raisr_apply_tile.cuh``'s ``odd_words``)."""
+    w = (taps + 1) // 2
     return w if w % 2 else w + 1
 
 
-def generic_tile_words(s: int, fl: int) -> int:
-    """Words of ``csrc/raisr_apply_generic.cu``'s staged bf16 tile (its
-    ``tile_geometry``): s*s planes of APPLY_TILE plus the filter's reach R
-    on each side, rows of 32 + padL words (padL = R rounded up to even)
-    padded to an odd pitch."""
+def generic_row_words(fl: int) -> int:
+    """32-bit words per filter row of the generic apply's bank: fl*fl bf16
+    and zero padding to an odd word count ((fl*fl + 1) / 2 for odd fl, one
+    word more for even fl)."""
+    return odd_words(fl * fl)
+
+
+def tile_plane_words(s: int, fl: int) -> int:
+    """Words of one plane of the generic apply forms' staged bf16 tile
+    (``csrc/raisr_apply_tile.cuh``'s ``tile_geometry``): APPLY_TILE plus the
+    filter's reach R on each side, rows of 32 + padL words (padL = R rounded
+    up to even) padded to an odd pitch."""
     reach = -(-(fl // 2) // s)
     half = APPLY_TILE[1] // 2 + (reach + 1) // 2 * 2
     pitch = half + 1 if half % 2 == 0 else half + 2
-    return s * s * (APPLY_TILE[0] + 2 * reach) * pitch
+    return (APPLY_TILE[0] + 2 * reach) * pitch
 
 
 def generic_apply_smem(s: int, fl: int, nbucket: int, phases: int) -> int:
@@ -357,14 +366,14 @@ def generic_apply_smem(s: int, fl: int, nbucket: int, phases: int) -> int:
     to an even tap count) and the tile."""
     bank = -(-phases * nbucket * generic_row_words(fl) // 4) * 4
     taps = phases * -(-fl * fl // 2) * 4
-    return 4 * (bank + taps + generic_tile_words(s, fl))
+    return 4 * (bank + taps + s * s * tile_plane_words(s, fl))
 
 
 def generic_apply_phases(s: int, fl: int, nbucket: int) -> int:
     """Resident phases of a generic apply block: the most (at most
     APPLY_MAX_PHASES and s*s) whose banks fit beside the tile in a block's
     shared memory, evened out over the sets of phases that cover all s*s;
-    0 when not even one phase fits (the L2 form runs the config)."""
+    0 when not even one phase fits (the split form runs the config)."""
     most = 0
     for p in range(1, min(APPLY_MAX_PHASES, s * s) + 1):
         if generic_apply_smem(s, fl, nbucket, p) <= APPLY_SMEM_LIMIT:
@@ -396,18 +405,117 @@ def _tap_table_on(s: int, fl: int, device) -> torch.Tensor:
     return torch.from_numpy(generic_tap_table(s, fl)).to(device)
 
 
+SPLIT_HEAD = 4  # csrc/raisr_apply_split.cu's kHead: ints of a plan record before its plane list
+# the most dynamic shared memory that lets two split-apply blocks share an
+# SM: 2 (bytes + 1 KB the SM keeps per block) <= its 228 KB
+SPLIT_PAIR_SMEM = 233472 // 2 - 1024
+
+
+class SplitPlan(NamedTuple):
+    """How ``csrc/raisr_apply_split.cu`` cuts a config's bank: ``nsplit``
+    splits of ``q`` consecutive taps (q even; the last split may hold
+    fewer), ``odd_words(q)`` words a row, and a tile of at most ``maxp``
+    planes. ``table``: int32 [s*s, nsplit, SPLIT_HEAD + maxp + 3 q], per
+    phase and split the record the kernel reads: the number of planes the
+    split's taps read, its first tap, its tap count, 0, those planes (the
+    image's plane index, ascending, zero padding) and per tap its staged
+    plane (an index into that list), row offset and column offset
+    (``generic_tap_table``'s offsets), zero padding."""
+
+    nsplit: int
+    q: int
+    maxp: int
+    table: np.ndarray
+
+
+def split_apply_smem(s: int, fl: int, nbucket: int, q: int, maxp: int) -> int:
+    """Dynamic shared memory of the split apply's launch (that file's
+    ``smem_bytes``): a split's rows (rounded up to 16 bytes), its tap table
+    (a word offset and a shift per tap), the plane list (rounded up to 4)
+    and a tile of ``maxp`` planes."""
+    bank = -(-nbucket * odd_words(q) // 4) * 4
+    return 4 * (bank + 2 * q + -(-maxp // 4) * 4 + maxp * tile_plane_words(s, fl))
+
+
+def _split_planes(plane_of_tap: np.ndarray, q: int) -> np.ndarray:
+    """[s*s, nsplit, q] the plane each tap of each split reads, -1 past the last tap."""
+    ss, ntap = plane_of_tap.shape
+    nsplit = -(-ntap // q)
+    padded = np.full((ss, nsplit * q), -1, np.int64)
+    padded[:, :ntap] = plane_of_tap
+    return padded.reshape(ss, nsplit, q)
+
+
+def _distinct_planes(split_planes: np.ndarray) -> np.ndarray:
+    """Distinct planes (>= 0) of each split: [s*s, nsplit]."""
+    v = np.sort(split_planes, axis=-1)
+    new = np.ones(v.shape, bool)
+    new[..., 1:] = v[..., 1:] != v[..., :-1]
+    return (new & (v >= 0)).sum(-1)
+
+
+@functools.lru_cache(maxsize=32)
+def split_plan(s: int, fl: int, nbucket: int, nsplit: int | None = None) -> SplitPlan:
+    """The split apply's plan: the fewest splits (of an even tap count q)
+    whose rows, tap table, plane list and tile let two blocks share an SM
+    (SPLIT_PAIR_SMEM), else the fewest that fit one block's shared memory;
+    or exactly ``nsplit`` (for timing other plans). Each split's tile holds
+    only the planes its taps read, so some q fits every config: at q = 2 a
+    split reads at most two planes. Raises when even that does not fit (a
+    bucket count near 56,000) or ``nsplit`` does not."""
+    ntap = fl * fl
+    taps = generic_tap_table(s, fl)
+    counts = range(1, -(-ntap // 2) + 1) if nsplit is None else (nsplit,)
+    fits = None  # the fewest splits that fit a block: (q, maxp)
+    tried = set()
+    for n in counts:
+        q = 2 * -(-ntap // (2 * n))
+        if q in tried:
+            continue
+        tried.add(q)
+        maxp = int(_distinct_planes(_split_planes(taps[..., 0], q)).max())
+        smem = split_apply_smem(s, fl, nbucket, q, maxp)
+        if smem <= APPLY_SMEM_LIMIT and fits is None:
+            fits = q, maxp
+        if smem <= SPLIT_PAIR_SMEM and nsplit is None:
+            fits = q, maxp
+            break
+    if fits is None:
+        raise ValueError(f"no split of scale {s}, filter_len {fl} and {nbucket} buckets"
+                         f"{'' if nsplit is None else f' into {nsplit}'} fits {APPLY_SMEM_LIMIT} "
+                         f"bytes of shared memory")
+    q, maxp = fits
+    nsp = -(-ntap // q)
+    table = np.zeros((s * s, nsp, SPLIT_HEAD + maxp + 3 * q), np.int32)
+    for t in range(s * s):
+        for k in range(nsp):
+            tq = taps[t, k * q : (k + 1) * q]
+            used = np.unique(tq[:, 0])
+            table[t, k, :3] = (len(used), k * q, len(tq))
+            table[t, k, SPLIT_HEAD : SPLIT_HEAD + len(used)] = used
+            staged = np.stack([np.searchsorted(used, tq[:, 0]), tq[:, 1], tq[:, 2]], -1)
+            table[t, k, SPLIT_HEAD + maxp : SPLIT_HEAD + maxp + 3 * len(tq)] = staged.reshape(-1)
+    return SplitPlan(nsp, q, maxp, table)
+
+
+@functools.lru_cache(maxsize=8)
+def _split_table_on(s: int, fl: int, nbucket: int, device) -> torch.Tensor:
+    return torch.from_numpy(split_plan(s, fl, nbucket).table).to(device)
+
+
 def apply_form(cfg, w2p: int) -> str:
     """The apply kernel ``cfg`` runs, by its launch count's name: the
     compiled form (``csrc/raisr_apply.cu``) for filter length 11 at scales
     2-4 when its resident banks fit a block's shared memory and the plane
     width is a multiple of 4 (every plane geometry's is); otherwise the
-    generic form (any width) when one phase's bank fits beside its tile,
-    and the L2 form (``csrc/raisr_apply_generic_l2.cu``) when it does not."""
+    generic form (any width) when one phase's bank fits beside its tile of
+    all s*s planes, and the split form (``csrc/raisr_apply_split.cu``, a
+    phase's bank cut by tap range, ``split_plan``) for every other config."""
     s, fl, nbk = cfg.scale, cfg.filter_len, _num_buckets(cfg)
     if (fl == APPLY_TAPS and s in APPLY_SCALES and w2p % 4 == 0
             and apply_smem(s, nbk) <= APPLY_SMEM_LIMIT):
         return "raisr_apply"
-    return "raisr_apply_generic" if generic_apply_phases(s, fl, nbk) else "raisr_apply_generic_l2"
+    return "raisr_apply_generic" if generic_apply_phases(s, fl, nbk) else "raisr_apply_split"
 
 
 # laid-out banks, newest last: key -> (weak reference to the filters, bank)
@@ -415,29 +523,38 @@ _BANKS: collections.OrderedDict = collections.OrderedDict()
 _BANKS_KEPT = 8
 
 
-def _bank_rows(filters: torch.Tensor, cfg, stride: int = BANK_ROW_STRIDE) -> tuple[torch.Tensor, int]:
+def _bank_rows(filters: torch.Tensor, cfg, stride: int = BANK_ROW_STRIDE,
+               split: int | None = None) -> tuple[torch.Tensor, int]:
     """The bank as the apply kernels read it: per-phase bf16 rows
     [s*s, buckets, stride], ``phase_rows`` followed by zero padding. The
     compiled form's stride of 122 and the generic form's 2 *
     ``generic_row_words`` (odd word counts) put one tap of different rows
-    on different shared-memory banks; the L2 form reads rows of fl*fl
-    padded to a multiple of 8 taps, 16 bytes at a time.
+    on different shared-memory banks. With ``split`` = q, the split form's
+    bank [nsplit, s*s, buckets, stride]: split k holds taps [k q, (k + 1) q)
+    of every row, then zero padding.
 
     Built once per bank: the result is kept for this very tensor (its
     storage address, version counter, device and the scale) and reused until
     the tensor is changed in place or goes away."""
     key = (filters.data_ptr(), filters._version, filters.device, cfg.scale,
-           cfg.filter_len, _num_buckets(cfg), stride)
+           cfg.filter_len, _num_buckets(cfg), stride, split)
     hit = _BANKS.get(key)
     if hit is not None and hit[0]() is filters:
         _BANKS.move_to_end(key)
         return hit[1], stride
     rows = phase_rows(filters, cfg)
     ntap = rows.shape[-1]
-    if ntap > stride:
-        raise ValueError(f"{ntap} taps do not fit a row of {stride}")
-    bank = torch.zeros(rows.shape[:2] + (stride,), dtype=torch.bfloat16, device=rows.device)
-    bank[..., :ntap] = rows
+    q = ntap if split is None else split
+    if q > stride:
+        raise ValueError(f"{q} taps do not fit a row of {stride}")
+    nsplit = -(-ntap // q)
+    bank = torch.zeros((nsplit,) + rows.shape[:2] + (stride,), dtype=torch.bfloat16,
+                       device=rows.device)
+    for k in range(nsplit):
+        part = rows[..., k * q : (k + 1) * q]
+        bank[k, ..., : part.shape[-1]] = part
+    if split is None:
+        bank = bank[0]
     _BANKS[key] = (weakref.ref(filters), bank)
     while len(_BANKS) > _BANKS_KEPT:
         _BANKS.popitem(last=False)
@@ -482,12 +599,18 @@ def apply_filters_planes_kernel(
             generic_apply_phases(s, fl, nbk),
         )
         return out
-    if form == "raisr_apply":
-        bank, stride = _bank_rows(filters, cfg)
-    else:
-        if nimg * ss > 65535:
-            raise ValueError(f"{nimg} images of {ss} phases exceed the L2 apply's grid")
-        bank, stride = _bank_rows(filters, cfg, -(-fl * fl // 8) * 8)
+    if form == "raisr_apply_split":
+        plan = split_plan(s, fl, nbk)
+        bank, stride = _bank_rows(filters, cfg, 2 * odd_words(plan.q), plan.q)
+        launch(
+            form, f"ocvk_{form}", planes.device,
+            planes.data_ptr(), bucket_planes.data_ptr(), bank.data_ptr(),
+            _split_table_on(s, fl, nbk, planes.device).data_ptr(), out.data_ptr(),
+            nimg, nb, s, fl, hp, rows, wq, h2p, w2p, nbk, stride // 2, plan.nsplit, plan.q,
+            plan.maxp,
+        )
+        return out
+    bank, stride = _bank_rows(filters, cfg)
     launch(
         form, f"ocvk_{form}", planes.device,
         planes.data_ptr(), bucket_planes.data_ptr(), bank.data_ptr(), out.data_ptr(),

@@ -110,3 +110,42 @@ def test_apply_out_of_range_bucket_gives_zero():
     out = kraisr.apply_filters_planes(planes, buckets, filters, cfg)
     assert out[0, 1, 2, 3] == 0 and out[0, 2, 0, 0] == 0
     assert (out[0, 0] > 0).all()
+
+
+@pytest.mark.parametrize("s, fl", [(2, 17), (3, 25)])
+def test_plain_apply_matches_jax_apply_filters_at_banks_too_large_for_a_block(s, fl):
+    # the configs the split form runs on the card (5 strength quantizers,
+    # 432 buckets: one phase's bank fits no block): the plain apply in plane
+    # space against the JAX package's full-resolution XLA apply_filters (one
+    # gathered filter per pixel, edge-padded taps), fed an image and a bank
+    # already rounded to bf16 as the plain version rounds them. Products of
+    # bf16 values are exact in f32 and both sum the taps in order from 0.
+    cfg = RaisrConfig(scale=s, filter_len=fl, num_strength=6,
+                      strength_quantizers=(1e-5, 1e-4, 1e-3, 1e-2, 1e-1))
+    nbk = cfg.num_angle * cfg.num_strength * cfg.num_coherence
+    h, w = 7, 6
+    big_h, big_w = s * h, s * w
+    rng = np.random.default_rng(fl)
+
+    def bf16(a):
+        return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+    up = bf16(rng.random((big_h, big_w), np.float32))
+    bank = bf16(rng.normal(0.0, 0.05, (cfg.num_filters, fl, fl)).astype(np.float32))
+    bucket = rng.integers(0, nbk, (big_h, big_w)).astype(np.int32)
+    yy, xx = np.mgrid[0:big_h, 0:big_w]
+    fidx = bucket * s * s + (yy % s) * s + xx % s  # filter k * s*s + t, t the pixel type
+    want = np.asarray(jax_raisr.apply_filters(jnp.asarray(up), jnp.asarray(fidx),
+                                              jnp.asarray(bank), cfg))
+    hp = port.plane_halo(fl, s, cfg.gauss_len)
+    assert s * hp >= fl // 2
+    # plane a*s + b, element (i, j): full-res (s (i - hp) + a, s (j - hp) + b)
+    padded = np.pad(up, s * hp, mode="edge")
+    planes = padded.reshape(h + 2 * hp, s, w + 2 * hp, s).transpose(1, 3, 0, 2)
+    buckets = bucket.reshape(h, s, w, s).transpose(1, 3, 0, 2)
+    got = kraisr.apply_filters_planes(
+        torch.from_numpy(planes.reshape(1, s * s, h + 2 * hp, w + 2 * hp).copy()),
+        torch.from_numpy(buckets.reshape(1, s * s, h, w).copy()), torch.from_numpy(bank), cfg,
+    ).numpy()
+    got = got.reshape(s, s, h, w).transpose(2, 0, 3, 1).reshape(big_h, big_w)
+    np.testing.assert_array_equal(got, want)

@@ -237,17 +237,26 @@ def test_shipped_x2_apply_fills_but_fits_shared_memory():
 
 
 @pytest.mark.parametrize("fl", [7, 11, 13])
-def test_generic_bank_rows_pad_to_16_bytes(fl):
-    # the L2 form's rows (csrc/raisr_apply_generic_l2.cu reads 8 taps per
-    # 16-byte load)
+def test_split_bank_rows_hold_each_tap_once(fl):
+    # csrc/raisr_apply_split.cu's bank: split k of row [t, b] holds taps
+    # [k q, (k + 1) q) of phase_rows' row in odd_words(q) words, then zeros
     cfg = dataclasses.replace(RaisrConfig(), filter_len=fl)
     rng = np.random.default_rng(fl)
     filters = torch.from_numpy(rng.standard_normal((cfg.num_filters, fl, fl)).astype(np.float32))
-    stride = -(-fl * fl // 8) * 8
-    bank, got_stride = kraisr._bank_rows(filters, cfg, stride)
-    assert got_stride == stride and bank.shape == (4, 216, stride)
-    assert torch.equal(bank[..., : fl * fl], kraisr.phase_rows(filters, cfg))
-    assert not bank[..., fl * fl :].float().any()
+    plan = kraisr.split_plan(2, fl, 216, 3)
+    stride = 2 * kraisr.odd_words(plan.q)
+    bank, got_stride = kraisr._bank_rows(filters, cfg, stride, plan.q)
+    assert got_stride == stride and bank.shape == (plan.nsplit, 4, 216, stride)
+    assert (stride // 2) % 2 == 1 and plan.q <= stride
+    rows = kraisr.phase_rows(filters, cfg)
+    live = [bank[k, ..., : min(plan.q, fl * fl - k * plan.q)] for k in range(plan.nsplit)]
+    assert torch.equal(torch.cat(live, dim=-1), rows)
+    for k, part in enumerate(live):
+        assert not bank[k, ..., part.shape[-1] :].float().any()
+    # the generic form's layout of the same bank is another cached entry
+    whole = kraisr._bank_rows(filters, cfg, 2 * kraisr.generic_row_words(fl))[0]
+    assert whole.shape == (4, 216, 2 * kraisr.generic_row_words(fl))
+    assert kraisr._bank_rows(filters, cfg, stride, plan.q)[0] is bank
 
 
 @pytest.mark.parametrize("wrapper", ["upscale", "hash", "apply"])
@@ -285,7 +294,7 @@ def _admitted(s, fl):
 @pytest.mark.parametrize("s", [2, 3, 4, 5, 6])
 def test_generic_apply_planner_fits_shared_memory(s):
     # csrc/raisr_apply_generic.cu: 1-4 resident phases (256 threads each)
-    # whose banks, tap tables and tile fit a block, or none and the L2 form
+    # whose banks, tap tables and tile fit a block, or none and the split form
     seen = set()
     for fl in range(1, 18):
         if not _admitted(s, fl):
@@ -302,6 +311,9 @@ def test_generic_apply_planner_fits_shared_memory(s):
                 assert -(-(s * s) // p) == -(-(s * s) // most)
             else:
                 assert kraisr.generic_apply_smem(s, fl, nbk, 1) > kraisr.APPLY_SMEM_LIMIT
+                cfg = dataclasses.replace(RaisrConfig(), scale=s, filter_len=fl, num_angle=na,
+                                          num_strength=ns, num_coherence=nc)
+                assert kraisr.apply_form(cfg, 128) == "raisr_apply_split"
             seen.add(bool(p))
     assert True in seen
 
@@ -312,11 +324,11 @@ def test_generic_apply_planner_fits_shared_memory(s):
     ({"scale": 5}, "raisr_apply_generic", 3),
     ({"scale": 6, "filter_len": 17}, "raisr_apply_generic", 1),
     # 145 words x 432 rows = 250,560 bytes: one phase's bank fits no block
-    ({"filter_len": 17, "num_strength": 6}, "raisr_apply_generic_l2", 0),
-    ({"filter_len": 16, "num_strength": 6}, "raisr_apply_generic_l2", 0),
+    ({"filter_len": 17, "num_strength": 6}, "raisr_apply_split", 0),
+    ({"filter_len": 16, "num_strength": 6}, "raisr_apply_split", 0),
     ({"filter_len": 15, "num_strength": 6}, "raisr_apply_generic", 1),
 ])
-def test_apply_form_takes_the_l2_form_exactly_when_a_bank_does_not_fit(change, form, phases):
+def test_apply_form_takes_the_split_form_exactly_when_a_bank_does_not_fit(change, form, phases):
     cfg = dataclasses.replace(RaisrConfig(), **change)
     nbk = kraisr._num_buckets(cfg)
     assert kraisr.apply_form(cfg, 128) == kraisr.apply_form(cfg, 126) == form
@@ -325,17 +337,90 @@ def test_apply_form_takes_the_l2_form_exactly_when_a_bank_does_not_fit(change, f
     assert fits == (form == "raisr_apply_generic")
 
 
-def test_generic_apply_l2_boundary_in_buckets():
+def test_generic_apply_split_boundary_in_buckets():
     # at x2 filter_len 17 the largest bank that still fits goes to the
-    # resident-bank form, one bucket more to the L2 form
+    # resident-bank form, one bucket more to the split form
     words = kraisr.generic_row_words(17)
     fit = max(n for n in range(1, 500)
               if kraisr.generic_apply_smem(2, 17, n, 1) <= kraisr.APPLY_SMEM_LIMIT)
     assert words == 145 and 216 < fit < 432
-    for n, form in ((fit, "raisr_apply_generic"), (fit + 1, "raisr_apply_generic_l2")):
+    for n, form in ((fit, "raisr_apply_generic"), (fit + 1, "raisr_apply_split")):
         cfg = dataclasses.replace(RaisrConfig(), filter_len=17, num_angle=n, num_strength=1,
                                   num_coherence=1)
         assert kraisr.apply_form(cfg, 128) == form
+
+
+# 27, 216, 432 and 1944 buckets
+SPLIT_BUCKETS = [(3, 3, 3), (24, 3, 3), (24, 6, 3), (24, 9, 9)]
+
+
+@pytest.mark.parametrize("s", [2, 3, 4, 5, 6])
+def test_split_planner_covers_every_tap_once_and_fits(s):
+    # csrc/raisr_apply_split.cu: the fewest splits of q consecutive taps (q
+    # even) whose rows, tap table, plane list and tile let two blocks share
+    # an SM, else the fewest that fit one block; every
+    # tap of every phase lies in exactly one split, in order, each split's
+    # record lists the planes its taps read, and every bucket row is in
+    # every split (test_split_bank_rows_hold_each_tap_once)
+    head = kraisr.SPLIT_HEAD
+    for fl in range(1, 50):
+        if not _admitted(s, fl):
+            continue
+        taps = kraisr.generic_tap_table(s, fl)
+        ntap = fl * fl
+        for na, ns, nc in SPLIT_BUCKETS:
+            nbk = na * ns * nc
+            plan = kraisr.split_plan(s, fl, nbk)
+            q, nsplit, maxp = plan.q, plan.nsplit, plan.maxp
+            assert q % 2 == 0 and (nsplit - 1) * q < ntap <= nsplit * q
+            smem = kraisr.split_apply_smem(s, fl, nbk, q, maxp)
+            assert smem <= kraisr.APPLY_SMEM_LIMIT
+            if nsplit > 1:  # one split fewer does not fit, or not two blocks to an SM
+                try:
+                    fewer = kraisr.split_plan(s, fl, nbk, nsplit - 1)
+                except ValueError:
+                    fewer = None  # does not fit a block
+                if fewer is not None:
+                    assert smem <= kraisr.SPLIT_PAIR_SMEM < kraisr.split_apply_smem(
+                        s, fl, nbk, fewer.q, fewer.maxp)
+            rec = plan.table
+            assert rec.dtype == np.int32 and rec.shape == (s * s, nsplit, head + maxp + 3 * q)
+            first = np.arange(nsplit) * q
+            assert (rec[..., 1] == first).all() and (rec[..., 2] == np.minimum(q, ntap - first)).all()
+            assert 1 <= rec[..., 0].min() and rec[..., 0].max() == maxp <= min(q, s * s)
+            for t in range(s * s):
+                parts = []
+                for k in range(nsplit):
+                    npl, nq = rec[t, k, 0], rec[t, k, 2]
+                    planes = rec[t, k, head : head + npl]
+                    staged = rec[t, k, head + maxp : head + maxp + 3 * nq].reshape(nq, 3)
+                    assert (np.diff(planes) > 0).all() and set(staged[:, 0]) == set(range(npl))
+                    parts.append(np.column_stack([planes[staged[:, 0]], staged[:, 1:]]))
+                assert np.array_equal(np.concatenate(parts), taps[t])
+
+
+def test_split_form_takes_any_batch(monkeypatch):
+    # the one-thread-per-pixel form it replaced refused nimg * s*s > 65535
+    # (its grid's z); the split form's persistent blocks walk every tile of
+    # any batch. The CUDA branch of the wrapper, on meta tensors, with the
+    # launch recorded instead of made.
+    cfg = dataclasses.replace(RaisrConfig(), filter_len=17, num_strength=6,
+                              strength_quantizers=(1e-5, 1e-4, 1e-3, 1e-2, 1e-1))
+    geo = port.plane_geometry(1, 1, cfg)
+    nimg = 65535 // 4 + 1
+    calls = []
+    monkeypatch.setattr(kraisr, "require_cuda_tensor", lambda *args: None)
+    monkeypatch.setattr(kraisr, "launch", lambda *args: calls.append(args))
+    planes = torch.empty((nimg, 4, geo.hq, geo.wq), device="meta")
+    buckets = torch.empty((1, 4, geo.h2p, geo.w2p), dtype=torch.int32, device="meta")
+    filters = torch.empty((cfg.num_filters, 17, 17), device="meta")
+    out = kraisr.apply_filters_planes_kernel(planes, buckets, filters, cfg)
+    assert out.shape == (nimg, 4, geo.h2p, geo.w2p)
+    ((kernel, entry, _, *args),) = calls
+    assert (kernel, entry) == ("raisr_apply_split", "ocvk_raisr_apply_split")
+    plan = kraisr.split_plan(2, 17, 432)
+    assert args[5:7] == [nimg, 1] and args[5] * 4 > 65535
+    assert args[-5:] == [432, kraisr.odd_words(plan.q), plan.nsplit, plan.q, plan.maxp]
 
 
 @pytest.mark.parametrize("fl", [1, 2, 4, 7, 11, 13, 17])
