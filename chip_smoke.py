@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU: RAISR x2
 inference (and RAISR at configs outside the compiled kernels' domain),
-global and local-block histogram equalization, and pyramidal block-matching
-motion estimation.
+global and local-block histogram equalization, pyramidal block-matching
+motion estimation, resize, RAISR 'shipped', the RAISR trainer,
+EnhancePipeline and the compat API.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -123,7 +124,35 @@ failure raises, and the script exits non-zero without the result line):
    time of ``median_filter_flow`` and ``upscale_mv``, each kernel's own
    time at the 4-pair finest level beside its bound (also with L2 flushed
    before every call), and the exact search kernel unseeded on 8 pairs
-   beside its own bound.
+   beside its own bound;
+7. resize (``ops.resize_uint8``, ``ops.resize``; torch ops, no kernel):
+   bilinear and bicubic under the three mappings on gray lenna, RGB lenna
+   and a 3x256x320 stack, up and down, against device="cpu" (uint8 equal or
+   within one level on 99.99 %, float within 1e-4) and the numpy oracle
+   (within one level), no kernel launched; output MP/s at bench.py's
+   16x1024^2 -> 2048^2 beside F.interpolate (a yardstick, another function);
+7b. RAISR fidelity='shipped' through ``RaisrModel.load(...).upsample`` on
+   gray, RGB and BGRA lenna against device="cpu", no kernel launched;
+7c. the RAISR trainer at RaisrConfig() (864 filters of 11x11) on
+   train_corpus(), augment='starved', float32 matmuls at full precision:
+   lenna's features through the upscale and hash kernels against the plain
+   versions on the card (fidx agreement, patches within 1 f32 ULP,
+   per-bucket G and r, counts), the upscale and hash launch counts during
+   training, the time by stage (each stage run again alone, its bank
+   equal to the trainer's bit for bit) and the G/r rate, and the frame11 x2 PSNR of
+   the bank above bicubic and within 0.05 dB of the JAX package's bank on
+   the same corpus (JAX_TRAINED_FRAME11_DB), the shipped bank's beside it;
+7d. ``EnhancePipeline`` (global equalize, RAISR x2, bicubic resize to
+   1080x1920, a 3-level pyramid) on 16x768x1280 lenna tiles: the histeq
+   and RAISR launch counts, 2 images against device="cpu" (the equalized
+   stage equal, the output and levels within one level on 99.9 %), input
+   MP/s, the device's idle share and each stage's time alone; then
+   equalize='local' on 2 images, untimed;
+7e. one call of each ``compat`` entry point on the card against its
+   use_gpu=False or numpy oracle counterpart (histeq global and local,
+   HistEq's three methods, Utility's three, Raisr, the exact search with and
+   without a seed, gaussian_pyramid, upscale_mv), each with the kernels it
+   must launch.
 
 Prints the per-kernel JSON line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -384,6 +413,29 @@ def lenna_batch(rng, n: int, h: int, w: int | None = None):
         noisy = tile.astype(np.int16) + rng.integers(-8, 9, tile.shape)
         out.append(np.clip(np.roll(noisy, sh, (0, 1)), 0, 255).astype(np.uint8))
     return np.stack(out)
+
+
+def train_corpus():
+    """The PNG part of examples/train_banks.py's training corpus, through the
+    port's own PNG reader: lenna and frame10 in RGB, and one pyr_down of each
+    one's luma. under_exposure.jpg is left out: the card's machine has no
+    JPEG decoder."""
+    from oclcomputervision_tpu_torch.oracle.pyramid import pyr_down
+    from oclcomputervision_tpu_torch.utils import load_gray, load_image
+
+    names = ("lenna.png", "frame10.png")
+    return [load_image(n) for n in names] + [pyr_down(load_gray(n)) for n in names]
+
+
+def degrade(hr, s: int):
+    """examples/train_banks.py's degradation: crop to a multiple of s, then
+    the s x s box mean rounded to uint8. Returns (hr, lr)."""
+    import numpy as np
+
+    h, w = (hr.shape[0] // s) * s, (hr.shape[1] // s) * s
+    hr = hr[:h, :w]
+    lr = hr.reshape(h // s, s, w // s, s).mean(axis=(1, 3)).round().astype(np.uint8)
+    return hr, lr
 
 
 def kernel_vs_plain(model, imgs, device):
@@ -1819,6 +1871,467 @@ def me_timing(rng, pyramid_batch, card, device):
     return times, e2e
 
 
+# ---------------------------------------------------------------------------
+# Phases 7-7e: resize, RAISR 'shipped', the trainer, EnhancePipeline, compat
+# ---------------------------------------------------------------------------
+
+RESIZE_METHODS = ("bilinear", "bicubic")
+RESIZE_MAPPINGS = ("align_corners", "hw_sampler", "half_pixel")
+RESIZE_STACK = (3, 256, 320)  # the [B, H, W] luma stack phase 7 checks
+RESIZE_BENCH = (16, 1024, 1024)  # bench.py:378's batch: 1024^2 -> 2048^2 uint8
+RESIZE_CPU_SHARE = 0.9999  # card vs CPU: equal, or within one level on this share
+RESIZE_FLOAT_TOL = 1e-4  # float resize, card vs CPU, on the [0, 255] scale
+# frame11 x2 PSNR (dB) of the JAX package's train_filters on train_corpus() at
+# RaisrConfig() with augment='starved', upsampled by the JAX raisr_upsample on
+# the CPU; recorded by `python tests/test_torch_raisr_train.py` (its
+# record_frame11), the port's PNG decode of every image
+JAX_TRAINED_FRAME11_DB = 34.260951392846586
+TRAINED_DB_TOL = 0.05
+TRAIN_GR_TOL = 1e-4  # per-bucket G and r, card features vs plain, of the bucket's max |G|
+PIPE_SHAPE = (16, 768, 1280)  # EnhancePipeline's input: lenna tiles
+PIPE_CHECK = 2  # images held against device="cpu"
+PIPE_RESIZE = (1080, 1920)
+PIPE_DEPTH = 3
+COMPAT_RAISR_PSNR = 40.0  # dB, RAISR against the numpy oracle (ROADMAP north star)
+
+
+def _within_one(a, b) -> float:
+    """Share of values of two uint8 tensors (any devices) within one level."""
+    return ((a.cpu().int() - b.cpu().int()).abs() <= 1).float().mean().item()
+
+
+def _no_launches(tag: str) -> None:
+    from oclcomputervision_tpu_torch.kernels import _build
+
+    if any(_build.LAUNCHES.values()):
+        raise AssertionError(f"{tag} launched kernels: {dict(_build.LAUNCHES)}")
+
+
+def resize_phase(rng, card, device):
+    """Phase 7: ``ops.resize_uint8`` and ``ops.resize`` on the card, bilinear
+    and bicubic under the three mappings, on gray lenna, RGB lenna and a
+    [B, H, W] stack, up and down: held against the same calls with
+    device="cpu" and against the numpy oracle; then timed at the bench
+    geometry beside F.interpolate (a yardstick: another function)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from oclcomputervision_tpu_torch import ops
+    from oclcomputervision_tpu_torch.kernels import _build
+    from oclcomputervision_tpu_torch.oracle import interpolation as oracle
+    from oclcomputervision_tpu_torch.utils import cuda_time_ms, device_profile, load_gray, load_image
+
+    inputs = {"gray lenna": (load_gray("lenna.png"), None), "RGB lenna": (load_image("lenna.png"), None),
+              "luma stack": (lenna_batch(rng, *RESIZE_STACK), True)}
+    worst = {"cpu_share": 1.0, "cpu_float_err": 0.0, "oracle_max": 0}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for tag, (img, batched) in inputs.items():
+        h, w = img.shape[1:3] if batched else img.shape[:2]
+        x = torch.from_numpy(img).to(device)
+        for size, out_hw in (("up", (2 * h, 2 * w)), ("down", (3 * h // 8, 5 * w // 8))):
+            for method in RESIZE_METHODS:
+                for mapping in RESIZE_MAPPINGS:
+                    args = (out_hw, method, mapping)
+                    got = ops.resize_uint8(x, *args, batched=batched)
+                    cpu = ops.resize_uint8(img, *args, batched=batched, device="cpu")
+                    share = _within_one(got, cpu)
+                    ferr = (ops.resize(x, *args, batched=batched).cpu()
+                            - ops.resize(img, *args, batched=batched, device="cpu")).abs().max().item()
+                    imgs = list(img) if batched else [img]
+                    want = np.stack([oracle.resize_uint8(i, *args) for i in imgs])
+                    omax = int(np.abs(got.cpu().numpy().reshape(want.shape).astype(int)
+                                      - want.astype(int)).max())
+                    worst["cpu_share"] = min(worst["cpu_share"], share)
+                    worst["cpu_float_err"] = max(worst["cpu_float_err"], ferr)
+                    worst["oracle_max"] = max(worst["oracle_max"], omax)
+                    if share < RESIZE_CPU_SHARE or ferr > RESIZE_FLOAT_TOL or omax > 1:
+                        raise AssertionError(
+                            f"resize {tag} {size} {method} {mapping}: {share} within one level "
+                            f"of the CPU, float {ferr}, oracle max {omax}")
+    torch.cuda.synchronize()
+    _no_launches("resize")
+    print(f"resize: {len(inputs) * 2 * len(RESIZE_METHODS) * len(RESIZE_MAPPINGS)} cases "
+          f"(gray, RGB, a {RESIZE_STACK} stack; up and down; bilinear and bicubic under "
+          f"{', '.join(RESIZE_MAPPINGS)}): card vs CPU uint8 within one level on >= "
+          f"{worst['cpu_share']:.7f} (min {RESIZE_CPU_SHARE}), float max |diff| "
+          f"{worst['cpu_float_err']:.3e} (max {RESIZE_FLOAT_TOL}); vs numpy oracle max "
+          f"{worst['oracle_max']} level (max 1); no kernel launched")
+
+    n, h, w = RESIZE_BENCH
+    x = torch.randint(0, 256, (n, h, w, 1), dtype=torch.uint8, device=device)
+    out_hw = (2 * h, 2 * w)
+    mp_out = n * out_hw[0] * out_hw[1] / 1e6
+    timings = {}
+    for method in RESIZE_METHODS:
+        ms = cuda_time_ms(ops.resize_uint8, x, out_hw, method)
+
+        def lib(method=method):
+            y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=out_hw, mode=method,
+                              align_corners=True)
+            return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
+
+        lms = cuda_time_ms(lib)
+        per_kernel, idle = device_profile(lambda m=method: ops.resize_uint8(x, out_hw, m))
+        busy = sum(per_kernel.values())
+        timings[method] = {"ms": ms, "mp_out_per_s": mp_out / ms * 1e3, "device_ms": busy,
+                           "idle_share": idle, "library_ms": lms,
+                           "library_mp_out_per_s": mp_out / lms * 1e3}
+        print(f"[{card}] resize_uint8 {method} {tuple(x.shape)} -> {out_hw}: {ms:.4f} ms, "
+              f"{mp_out / ms * 1e3:.2f} MP out/s (device busy {busy:.4f} ms, idle share "
+              f"{idle:.4f}, {len(per_kernel)} kernels); F.interpolate(mode={method!r}, "
+              f"align_corners=True) + round: {lms:.4f} ms, {mp_out / lms * 1e3:.2f} MP out/s "
+              f"(a yardstick, not the port: {'a = -0.75' if method == 'bicubic' else 'f32 coordinates'})")
+    return {**worst, "bench": timings}
+
+
+def shipped_phase(device):
+    """Phase 7b: RaisrModel.load(x2 bank, fidelity='shipped').upsample on
+    gray, RGB and BGRA lenna, on the card against device="cpu": the bilinear
+    upscale and the YUV round trip, no kernel."""
+    import numpy as np
+    import torch
+
+    from oclcomputervision_tpu_torch.kernels import _build
+    from oclcomputervision_tpu_torch.models.raisr import RaisrModel
+    from oclcomputervision_tpu_torch.utils import asset_path, load_gray, load_image
+
+    path = asset_path("raisr_filters_x2.npz")
+    card = RaisrModel.load(path, fidelity="shipped", device=device)
+    cpu = RaisrModel.load(path, fidelity="shipped", device="cpu")
+    rgb = load_image("lenna.png")
+    alpha = np.random.default_rng(7).integers(0, 256, rgb.shape[:2], dtype=np.uint8)
+    bgra = np.ascontiguousarray(np.concatenate([rgb[..., ::-1], alpha[..., None]], -1))
+    shares = {}
+    for tag, img in (("gray", load_gray("lenna.png")), ("RGB", rgb), ("BGRA", bgra)):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        got = card.upsample(img)
+        torch.cuda.synchronize()
+        _no_launches(f"shipped {tag}")
+        want = cpu.upsample(img)
+        shares[tag] = _within_one(got, want)
+        print(f"RAISR shipped {tag}: {img.shape} -> {tuple(got.shape)} uint8, "
+              f"{shares[tag]:.7f} of values within one level of device='cpu' (min {E2E_WITHIN_ONE}); "
+              f"no kernel launched")
+        if tuple(got.shape) != tuple(want.shape) or shares[tag] < E2E_WITHIN_ONE:
+            raise AssertionError(f"shipped {tag}: card and CPU disagree ({shares[tag]})")
+    return shares
+
+
+def trainer_phase(card, device):
+    """Phase 7c: the RAISR trainer at the shipped x2 model's full width
+    (RaisrConfig(): 864 filters of 11 x 11) on train_corpus(), augment='starved'.
+    (a) the card's features (the upscale and hash kernels) against the plain
+    versions on the card, on lenna; (b) the launch counts, the frame11 PSNR
+    against bicubic and the recorded JAX figure; (c) the times by stage."""
+    import numpy as np
+    import torch
+
+    from oclcomputervision_tpu_torch import ops
+    from oclcomputervision_tpu_torch.kernels import _build
+    from oclcomputervision_tpu_torch.models.raisr import (
+        RIDGE_BY_SCALE,
+        RaisrModel,
+        _training_arrays,
+        accumulate_normal_eq,
+        dihedral_transforms,
+        hr_luma01,
+        solve_filters,
+        train_filters,
+    )
+    from oclcomputervision_tpu_torch.ops.raisr import KERNEL_STAGES, PLAIN_STAGES
+    from oclcomputervision_tpu_torch.utils import asset_path, load_gray, psnr
+    from oclcomputervision_tpu_torch.utils.config import RaisrConfig
+
+    # a TF32 matmul or solve would move the bank (cond(G) ~ 1e7) far past any tolerance
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 matmuls are not at full precision")
+    cfg = RaisrConfig()
+    corpus = train_corpus()
+
+    # (a) features through the kernels and through the plain versions, on the card
+    y = torch.from_numpy(hr_luma01(corpus[0]).astype(np.float32)).to(device)
+    pk, tk, fk = _training_arrays(y, cfg, KERNEL_STAGES)
+    pp, tp, fp = _training_arrays(y, cfg, PLAIN_STAGES)
+    agree = (fk == fp).float().mean().item()
+    ulp = torch.nextafter(pp.abs(), torch.tensor(float("inf"), device=device)) - pp.abs()
+    patches_ok = bool(((pk - pp).abs() <= ulp).all()) and torch.equal(tk, tp)
+    nf = cfg.num_filters
+    gk, rk, ck = accumulate_normal_eq(pk, tk, fk, nf)
+    gp, rp, cp = accumulate_normal_eq(pp, tp, fp, nf)
+    differ = fk != fp
+    touched = torch.zeros(nf, dtype=torch.bool, device=device)
+    touched[fk[differ].long()] = True
+    touched[fp[differ].long()] = True
+    gmax = gp.abs().amax(dim=(1, 2)).clamp_min(torch.finfo(torch.float32).tiny)
+    keep = ~touched & (cp > 0)
+    g_err = ((gk - gp).abs().amax(dim=(1, 2)) / gmax)[keep].max().item()
+    r_err = ((rk - rp).abs().amax(dim=1) / gmax)[keep].max().item()
+    counts_ok = not bool(((ck != cp) & ~touched).any())
+    print(f"trainer features on lenna {tuple(y.shape)}, card vs plain on the card: fidx "
+          f"agreement {agree:.7f} (min {HASH_AGREEMENT}, {int(differ.sum())} differ), patches "
+          f"within 1 f32 ULP {patches_ok}, per-bucket G {g_err:.3e} and r {r_err:.3e} of the "
+          f"bucket's max |G| (max {TRAIN_GR_TOL}, buckets a differing pixel touches left out), "
+          f"counts differ only there {counts_ok}")
+    if agree < HASH_AGREEMENT or not patches_ok or not counts_ok or max(g_err, r_err) > TRAIN_GR_TOL:
+        raise AssertionError("the trainer's features through the kernels disagree with the plain versions")
+    del pk, pp, gk, rk, ck
+
+    # (b): the whole trainer through the kernels
+    def on_events(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    _build.reset_launches()
+    bank, wall = on_events(lambda: train_filters(corpus, cfg, augment="starved", device=device))
+    launches = dict(_build.LAUNCHES)
+    variants = [v for im in corpus for v in dihedral_transforms(hr_luma01(im))]
+    hr_mp = sum((v.shape[0] // 2 * 2) * (v.shape[1] // 2 * 2) for v in variants) / 1e6
+    print(f"trainer: {len(corpus)} images ({', '.join(str(im.shape) for im in corpus)}) x 8 "
+          f"dihedral variants, {hr_mp:.4f} HR MP, launches {launches}")
+    if launches["upscale_planes"] < 1 or launches["raisr_hash"] < 1:
+        raise AssertionError("the trainer's features launched no upscale or hash kernel")
+    if not bool(torch.isfinite(bank).all()) or tuple(bank.shape) != (nf, 11, 11):
+        raise AssertionError(f"bank {tuple(bank.shape)} not finite")
+
+    # (c): its three stages, each run again alone over the corpus as
+    # train_filters(augment='starved') runs them; the bank they make must be
+    # the trainer's, bit for bit (the accumulation uses no atomics)
+    feats, ms_f = on_events(lambda: [_training_arrays(torch.from_numpy(
+        np.ascontiguousarray(v, np.float32)).to(device), cfg) for v in variants])
+
+    def accumulate():
+        sums = [torch.zeros_like(t) for t in (gp, rp, cp)]
+        native = [torch.zeros_like(t) for t in (gp, rp, cp)]
+        for k, f in enumerate(feats):
+            part = accumulate_normal_eq(*f, nf)
+            sums = [a + b for a, b in zip(sums, part)]
+            if k % 8 == 0:  # the identity transform comes first
+                native = [a + b for a, b in zip(native, part)]
+        return sums, native
+
+    (sums, native), ms_a = on_events(accumulate)
+    ridge = RIDGE_BY_SCALE[cfg.scale]
+
+    def solve():
+        f_all = solve_filters(*sums, cfg.filter_len, ridge)
+        f_nat = solve_filters(*native, cfg.filter_len, ridge)
+        return torch.where((native[2] < 2.0 * cfg.filter_len ** 2)[:, None, None], f_all, f_nat)
+
+    staged, ms_s = on_events(solve)
+    stages = {"features": ms_f, "accumulate": ms_a, "solve": ms_s}
+    print(f"[{card}] trainer: {wall:.4f} ms wall; its stages run alone: features {ms_f:.4f}, "
+          f"accumulate {ms_a:.4f}, solve {ms_s:.4f} ms; G/r accumulation "
+          f"{hr_mp / ms_a * 1e3:.4f} HR MP/s; the stages' bank equal to the trainer's "
+          f"{torch.equal(staged, bank)}")
+    if not torch.equal(staged, bank):
+        raise AssertionError("the trainer's bank differs from run to run")
+    del feats, sums, native, gp, rp, cp
+
+    hr, lr = degrade(load_gray("frame11.png"), 2)
+    trained = RaisrModel(cfg, bank).upsample(lr).cpu().numpy()
+    shipped = RaisrModel.load(asset_path("raisr_filters_x2.npz"), device=device).upsample(lr)
+    bicubic = ops.resize_uint8(lr, hr.shape, "bicubic", device=device)
+    p_t, p_s, p_b = psnr(trained, hr), psnr(shipped.cpu().numpy(), hr), psnr(bicubic.cpu().numpy(), hr)
+    print(f"[{card}] frame11 x2 PSNR: card-trained bank {p_t:.4f} dB (JAX-trained on the CPU "
+          f"{JAX_TRAINED_FRAME11_DB:.4f}, max off {TRAINED_DB_TOL}), shipped bank {p_s:.4f} dB, "
+          f"bicubic {p_b:.4f} dB")
+    if not p_t > p_b or abs(p_t - JAX_TRAINED_FRAME11_DB) > TRAINED_DB_TOL:
+        raise AssertionError(f"the card-trained bank: {p_t} dB (bicubic {p_b})")
+    return {"launches": launches, "wall_ms": wall, "stages_ms": stages,
+            "gr_mp_per_s": hr_mp / ms_a * 1e3, "fidx_agreement": agree,
+            "psnr_db": p_t, "shipped_db": p_s, "bicubic_db": p_b}
+
+
+def pipeline_phase(rng, card, device):
+    """Phase 7d: EnhancePipeline, global equalize -> RAISR x2 (the shipped
+    bank) -> bicubic resize to PIPE_RESIZE -> a PIPE_DEPTH pyramid, on
+    PIPE_SHAPE lenna tiles: launch counts, PIPE_CHECK images against
+    device="cpu", input MP/s; then equalize='local' on 2 images, untimed."""
+    import torch
+
+    from oclcomputervision_tpu_torch import ops
+    from oclcomputervision_tpu_torch.kernels import _build
+    from oclcomputervision_tpu_torch.models import EnhanceConfig, EnhancePipeline, RaisrModel
+    from oclcomputervision_tpu_torch.utils import asset_path, cuda_time_ms, device_profile
+
+    model = RaisrModel.load(asset_path("raisr_filters_x2.npz"), device=device)
+    x = torch.from_numpy(lenna_batch(rng, *PIPE_SHAPE)).to(device)
+    few = x[:PIPE_CHECK].cpu().numpy()
+    res = {}
+    for equalize in ("global", "local"):
+        cfg = EnhanceConfig(equalize=equalize, superres="raisr", resize_to=PIPE_RESIZE,
+                            resize_method="bicubic", pyramid_depth=PIPE_DEPTH)
+        pipe = EnhancePipeline(cfg, raisr_model=model)
+        inp = x if equalize == "global" else x[:2]
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out, levels = pipe(inp)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        need = (GLOBAL_KERNELS if equalize == "global" else LOCAL_KERNELS) + RAISR_KERNELS
+        missing = [k for k in need if launches[k] < 1]
+        print(f"EnhancePipeline equalize={equalize!r}: {tuple(inp.shape)} uint8 -> "
+              f"{tuple(out.shape)} and levels {[tuple(v.shape) for v in levels]}, launches {launches}")
+        if missing or tuple(out.shape) != (inp.shape[0], *PIPE_RESIZE):
+            raise AssertionError(f"pipeline {equalize}: launched no {missing}, or output {tuple(out.shape)}")
+        # the equalized stage equal to the CPU's; the rest within one level
+        eq = EnhanceConfig(equalize=equalize)
+        eq_card = EnhancePipeline(eq)(inp[:PIPE_CHECK])
+        if not torch.equal(eq_card.cpu(), EnhancePipeline(eq)(few, device="cpu")):
+            raise AssertionError(f"pipeline {equalize}: the equalized stage differs from the CPU's")
+        if equalize == "global":
+            cpu_out, cpu_levels = pipe(few, device="cpu")
+            shares = [_within_one(out[:PIPE_CHECK], cpu_out)] + [
+                _within_one(a[:PIPE_CHECK], b) for a, b in zip(levels, cpu_levels)]
+            print(f"EnhancePipeline vs device='cpu' on {PIPE_CHECK} images: equalized stage equal, "
+                  f"output and levels within one level on {', '.join(f'{s:.7f}' for s in shares)} "
+                  f"(min {E2E_WITHIN_ONE})")
+            if min(shares) < E2E_WITHIN_ONE:
+                raise AssertionError(f"pipeline: card and CPU disagree ({shares})")
+            ms = cuda_time_ms(pipe, x)
+            mp_in = x.numel() / 1e6
+            per_kernel, idle = device_profile(pipe, x)
+            # each stage alone on the previous stage's output (CUDA events)
+            eq_x = ops.histeq_global(x)
+            sr = model.upsample(eq_x)
+            rs = ops.resize_uint8(sr, PIPE_RESIZE, "bicubic", batched=True)
+            stages = {"equalize": cuda_time_ms(ops.histeq_global, x),
+                      "raisr": cuda_time_ms(model.upsample, eq_x),
+                      "resize": cuda_time_ms(lambda: ops.resize_uint8(
+                          sr, PIPE_RESIZE, "bicubic", batched=True)),
+                      "pyramid": cuda_time_ms(lambda: ops.gaussian_pyramid(
+                          rs, 2, PIPE_DEPTH, batched=True))}
+            print(f"[{card}] EnhancePipeline {tuple(x.shape)}: {ms:.4f} ms, "
+                  f"{mp_in / ms * 1e3:.2f} MP in/s; device busy {sum(per_kernel.values()):.4f} "
+                  f"ms, idle share {idle:.4f}; stages alone: " + ", ".join(
+                      f"{k} {v:.4f} ms" for k, v in stages.items()))
+            res[equalize] = {"launches": launches, "ms": ms, "mp_in_per_s": mp_in / ms * 1e3,
+                             "device_ms": sum(per_kernel.values()), "idle_share": idle,
+                             "stages_ms": stages, "cpu_within_one": shares}
+        else:
+            res[equalize] = {"launches": launches}
+    return res
+
+
+def compat_phase(rng, device):
+    """Phase 7e: one call of each compat entry point on the card against its
+    use_gpu=False / numpy oracle counterpart: histograms and motion equal,
+    global histeq as phase 4b, local histeq, resize and pyramids within one
+    level, RAISR above 40 dB."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from oclcomputervision_tpu_torch import compat
+    from oclcomputervision_tpu_torch.kernels import _build
+    from oclcomputervision_tpu_torch.models.raisr import RaisrModel
+    from oclcomputervision_tpu_torch.oracle import histeq as o_histeq
+    from oclcomputervision_tpu_torch.oracle import interpolation as o_interp
+    from oclcomputervision_tpu_torch.oracle import motion as o_motion
+    from oclcomputervision_tpu_torch.oracle import pyramid as o_pyramid
+    from oclcomputervision_tpu_torch.oracle import raisr as o_raisr
+    from oclcomputervision_tpu_torch.utils import asset_path, load_gray, load_image, psnr
+
+    def maxdiff(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape != b.shape:
+            raise AssertionError(f"shapes {a.shape} and {b.shape}")
+        return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+
+    def launched(tag, kernels, fn, *args, **kw):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seen = {k: _build.LAUNCHES[k] for k in kernels}
+        if min(seen.values(), default=1) < 1:
+            raise AssertionError(f"compat {tag} launched {seen}")
+        return out, said.getvalue().strip(), seen
+
+    def check(tag, ok, what):
+        print(f"compat {tag}: {what}")
+        if not ok:
+            raise AssertionError(f"compat {tag} disagrees: {what}")
+
+    g = load_gray("lenna.png")
+    res = {}
+    out, said, seen = launched("histeq_global", GLOBAL_KERNELS, compat.histeq_global, g)
+    d = np.abs(out.astype(int) - compat.histeq_global(g, use_gpu=False).astype(int))
+    check("histeq_global", d.max() <= 1 and (d > 0).mean() < HISTEQ_ORACLE_SHARE,
+          f"max {d.max()}, share off {(d > 0).mean():.7f} vs use_gpu=False; {seen}; {said!r}")
+    out, said, seen = launched("histeq_local_block", LOCAL_KERNELS, compat.histeq_local_block, g)
+    ref = g.copy()
+    cpu = compat.histeq_local_block(ref, use_gpu=False)
+    check("histeq_local_block", cpu is ref and maxdiff(out, cpu) <= 1,
+          f"max {maxdiff(out, cpu)} vs use_gpu=False (which wrote its input in place); {seen}; {said!r}")
+
+    eq = compat.HistEq.getInstance()
+    (grid, ms), _, seen = launched("HistEq.histGrid", (), eq.histGrid, g)
+    check("HistEq.histGrid", np.array_equal(grid, o_histeq.hist_grid(g, (32, 256))),
+          f"equal to the oracle, {ms:.3f} ms")
+    lut = rng.integers(0, 256, 256).astype(np.uint8)
+    (out, ms), _, seen = launched("HistEq.histeqGlobal", ("apply_lut",), eq.histeqGlobal, g, lut)
+    check("HistEq.histeqGlobal", np.array_equal(out, lut[g]), f"equal to lut[g], {seen}, {ms:.3f} ms")
+    maps = rng.uniform(0, 255, (2, 2, 256)).astype(np.float32)
+    (out, ms), _, seen = launched("HistEq.histeqLocalBlock", ("blend_blocks",), eq.histeqLocalBlock,
+                                  g[:500, :460], maps, (256, 256))
+    want = o_histeq.apply_block_mappings(g[:500, :460], maps, (256, 256))
+    check("HistEq.histeqLocalBlock", maxdiff(out, want) <= 1,
+          f"max {maxdiff(out, want)} vs the oracle, {seen}, {ms:.3f} ms")
+    res["blend_tiles_launches"] = seen["blend_blocks"]
+
+    rgb = load_image("lenna.png")
+    util = compat.Utility()
+    for name, method, mapping in (("bilinear", "bilinear", "hw_sampler"),
+                                  ("bilinear_lds", "bilinear", "align_corners"),
+                                  ("bicubic", "bicubic", "align_corners")):
+        dst = np.zeros((700, 900, 3), np.uint8)
+        (ms,), _, _ = launched(f"Utility.{name}", (), getattr(util, name), rgb, dst)
+        want = o_interp.resize_uint8(rgb, (700, 900), method, mapping)
+        check(f"Utility.{name}", maxdiff(dst, want) <= 1,
+              f"max {maxdiff(dst, want)} vs the oracle ({mapping}), {ms:.3f} ms")
+
+    r = compat.Raisr(0)
+    src = g[128:384, 128:384]
+    dst = np.zeros((512, 512), np.uint8)
+    (ms,), _, seen = launched("Raisr.upsample", RAISR_KERNELS, r.upsample, src, dst, 2)
+    bank = RaisrModel.load(asset_path("raisr_filters_x2.npz"), device="cpu")
+    want = o_raisr.raisr_upsample(src, bank.filters.numpy().astype(np.float64), bank.cfg)
+    check("Raisr.upsample", psnr(dst, want) > COMPAT_RAISR_PSNR,
+          f"{psnr(dst, want):.4f} dB vs the numpy oracle (min {COMPAT_RAISR_PSNR}), {seen}")
+    res["raisr_db"] = psnr(dst, want)
+
+    f0, f1 = (load_gray(n)[200:320, 240:400] for n in ("frame10.png", "frame11.png"))
+    mv, _, seen = launched("estimate_motion_vector", ("me_exact",), compat.estimate_motion_vector, f0, f1)
+    check("estimate_motion_vector", np.array_equal(mv, o_motion.estimate_motion_vector(f0, f1, 15, 5)),
+          f"{mv.shape} equal to the oracle, {seen}")
+    seed = rng.uniform(-6, 6, mv.shape).astype(np.float32)
+    mv, _, seen = launched("estimate_motion_vector seeded", ("me_exact",),
+                           compat.estimate_motion_vector, f0, f1, seed=seed)
+    check("estimate_motion_vector seeded",
+          np.array_equal(mv, o_motion.estimate_motion_vector(f0, f1, 15, 5, seed=seed)),
+          f"equal to the oracle, {seen}")
+    levels, _, _ = launched("gaussian_pyramid", (), compat.gaussian_pyramid, g, 2, 3)
+    want = o_pyramid.gaussian_pyramid(g, 2, 3)
+    check("gaussian_pyramid", all(maxdiff(a, b) <= 1 for a, b in zip(levels, want)),
+          f"{[lv.shape for lv in levels]} within one level of the oracle")
+    up, _, _ = launched("upscale_mv", (), compat.upscale_mv, mv, 2)
+    err = float(np.abs(up - o_motion.upscale_mv(mv, 2, "shipped")).max())
+    check("upscale_mv", err <= 1e-4, f"{up.shape}, max |diff| {err:.3e} vs the oracle (max 1e-4)")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="input noise and rolls")
@@ -1929,6 +2442,13 @@ def main() -> int:
     times.update(me_times)
     e2e = {"raisr_x2": e2e, "raisr_generic": e2e_generic, **histeq_e2e, **me_e2e,
            "me_epe": me_epe}
+
+    # phases 7-7e: resize, RAISR 'shipped', the trainer, EnhancePipeline, compat
+    e2e["resize"] = resize_phase(rng, card, device)
+    e2e["raisr_shipped"] = shipped_phase(device)
+    e2e["raisr_train"] = trainer_phase(card, device)
+    e2e["enhance_pipeline"] = pipeline_phase(rng, card, device)
+    e2e["compat"] = compat_phase(rng, device)
 
     kernels = [
         {

@@ -11,6 +11,7 @@ from oclcomputervision_tpu_torch.ops.histeq import (
     histeq_local_block,
     histogram256,
 )
+from oclcomputervision_tpu_torch.ops.interpolation import resize, resize_uint8
 from oclcomputervision_tpu_torch.ops.motion import (
     estimate_motion_pyramid,
     estimate_motion_vector,
@@ -39,6 +40,8 @@ __all__ = [
     "median_filter_flow",
     "pyr_down",
     "refine_flow_subpixel",
+    "resize",
     "resize_bilinear_halfpixel",
+    "resize_uint8",
     "upscale_mv",
 ]

@@ -5,7 +5,10 @@ Port of ``oclcomputervision_tpu/ops/raisr.py``'s ``fidelity='full'`` path
 planes, the gradient hash and the per-pixel filter select/apply run in plane
 space, and the only interleaved array ever built is the uint8 output. The
 three stages are hand-written CUDA kernels (``kernels/``); everything around
-them is plain PyTorch.
+them is plain PyTorch. ``fidelity='shipped'`` (the reference's observable
+behaviour, ``_raisr_2d`` with ``_raisr_post``'s shipped branch) is the
+interleaved align-corners bilinear resize of ``ops/interpolation`` and, for
+colour, an RGB->YUV->RGB round trip: torch ops, no kernel.
 
 Plane convention (shared with the kernels and with the JAX package):
 ``planes[a*s + b][hp + i, hp + j] = up_e(s*i + a, s*j + b)``, where up_e is
@@ -25,6 +28,7 @@ import torch
 
 from oclcomputervision_tpu_torch.kernels import raisr as kraisr
 from oclcomputervision_tpu_torch.kernels import upscale as kupscale
+from oclcomputervision_tpu_torch.ops.interpolation import _resize_plane
 from oclcomputervision_tpu_torch.oracle import raisr as oracle_raisr
 from oclcomputervision_tpu_torch.oracle.interpolation import axis_weights
 from oclcomputervision_tpu_torch.utils.config import RaisrConfig
@@ -174,6 +178,24 @@ def _ct_blend_weight_planes(up_pl, s: int, hp: int, h2p: int, w2p: int):
     return torch.stack(outs, dim=1)
 
 
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d as a true f32 division: on CUDA, dividing by a Python scalar
+    multiplies by its reciprocal instead, which can differ in the last bit."""
+    return x / torch.tensor(d, dtype=torch.float32, device=x.device)
+
+
+def interleave_planes(planes: torch.Tensor, s: int, h: int, w: int) -> torch.Tensor:
+    """Parity planes [B, s*s, h2p, w2p] -> the interleaved image [B, h, w]:
+    element (i, j) of plane a*s + b is pixel (s*i + a, s*j + b); cropped to
+    h <= s*h2p rows and w <= s*w2p columns."""
+    bsz, _, h2p, w2p = planes.shape
+    return (
+        planes.reshape(bsz, s, s, h2p, w2p)
+        .permute(0, 3, 1, 4, 2)
+        .reshape(bsz, s * h2p, s * w2p)[:, :h, :w]
+    )
+
+
 def _raisr_planes_batched(
     imgs_u8: torch.Tensor,
     filters: torch.Tensor,
@@ -191,11 +213,7 @@ def _raisr_planes_batched(
     geo = plane_geometry(h, w, cfg)
     h2p, w2p, hp, hq, wq = geo.h2p, geo.w2p, geo.hp, geo.hq, geo.wq
 
-    # a true division: on CUDA, dividing by a Python scalar multiplies by
-    # its reciprocal instead, which can differ in the last bit
-    x01 = imgs_u8.to(torch.float32) / torch.tensor(
-        255.0, dtype=torch.float32, device=imgs_u8.device
-    )
+    x01 = true_div(imgs_u8.to(torch.float32), 255.0)
     if nchan == 1:
         chan_planes = [stages.upscale(x01, cfg, hq, wq, hp)]
     else:
@@ -243,13 +261,29 @@ def _raisr_planes_batched(
     # torch.round, like jnp.round, rounds half to even
     u8 = [torch.clamp(torch.round(o * 255.0), 0, 255).to(torch.uint8) for o in out_pl]
     # interleave in uint8 (4x less traffic than f32), then crop
-    outs = [
-        o.reshape(bsz, s, s, h2p, w2p)
-        .permute(0, 3, 1, 4, 2)
-        .reshape(bsz, s * h2p, s * w2p)[:, : s * h, : s * w]
-        for o in u8
-    ]
+    outs = [interleave_planes(o, s, s * h, s * w) for o in u8]
     return outs[0] if nchan == 1 else torch.stack(outs, dim=-1)
+
+
+def _csc(img: torch.Tensor, mat: np.ndarray) -> torch.Tensor:
+    """3x3 colour-space conversion of [..., 3] or [..., 4] channels
+    (``ops/raisr.py:_csc``): a BGRA input's alpha passes through."""
+    m = torch.from_numpy(np.ascontiguousarray(mat, np.float32)).to(img.device)
+    if img.shape[-1] == 4:
+        return torch.cat([img[..., :3] @ m, img[..., 3:]], dim=-1)
+    return img @ m
+
+
+def _raisr_shipped(imgs_u8: torch.Tensor, s: int, gray: bool) -> torch.Tensor:
+    """fidelity='shipped': uint8 [B, H, W, C] -> uint8 [B, sH, sW, C], the
+    cheap align-corners bilinear upscale and, for colour, the YUV round trip
+    (the reference kernel's early return, raisr.cl:219-230)."""
+    x01 = true_div(imgs_u8.to(torch.float32), 255.0)
+    h, w = x01.shape[1:3]
+    out = _resize_plane(x01, (h * s, w * s), "bilinear")
+    if not gray:
+        out = _csc(_csc(out, oracle_raisr.RGB2YUV.T), oracle_raisr.YUV2RGB.T)
+    return torch.clamp(torch.round(out * 255.0), 0, 255).to(torch.uint8)
 
 
 def raisr_upsample(
@@ -259,24 +293,24 @@ def raisr_upsample(
 
     Runs on ``img``'s device: the CUDA kernels for a CUDA tensor, their
     plain versions for a CPU tensor. ``filters`` is the
-    [num_filters, fl, fl] bank (None: all zeros, as the JAX package).
+    [num_filters, fl, fl] bank (None: all zeros, as the JAX package);
+    ``cfg.fidelity == 'shipped'`` reads no bank and launches no kernel.
     """
     if not isinstance(img, torch.Tensor) or img.dtype != torch.uint8:
         raise TypeError("img must be a uint8 torch.Tensor on the target device")
-    if cfg.fidelity == "shipped":
-        raise NotImplementedError(
-            "fidelity='shipped' is not ported yet: it runs the interleaved "
-            "resize path of ops/interpolation (ROADMAP queue A item 5)"
-        )
-    if cfg.fidelity != "full":
+    if cfg.fidelity not in ("full", "shipped"):
         raise ValueError(f"unknown fidelity {cfg.fidelity!r}")
+    gray = img.ndim == 2 or (img.ndim == 3 and img.shape[-1] not in (3, 4))
+    single = img.ndim == 2 or (img.ndim == 3 and not gray)
+    batch = img[None] if single else img
+    if cfg.fidelity == "shipped":
+        out = _raisr_shipped(batch[..., None] if gray else batch, cfg.scale, gray)
+        out = out[..., 0] if gray else out
+        return out[0] if single else out
     fl = cfg.filter_len
     if filters is None:
         filters = torch.zeros((cfg.num_filters, fl, fl), device=img.device)
     filters = filters.to(device=img.device, dtype=torch.float32)
-    gray = img.ndim == 2 or (img.ndim == 3 and img.shape[-1] not in (3, 4))
-    single = img.ndim == 2 or (img.ndim == 3 and not gray)
     nchan = 1 if gray else img.shape[-1]
-    batch = img[None] if single else img
     out = _raisr_planes_batched(batch.contiguous(), filters, cfg, nchan)
     return out[0] if single else out

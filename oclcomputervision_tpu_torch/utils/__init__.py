@@ -10,7 +10,7 @@ from oclcomputervision_tpu_torch.utils.png import (
     load_image,
     read_png,
 )
-from oclcomputervision_tpu_torch.utils.profiling import cuda_time_ms, device_profile
+from oclcomputervision_tpu_torch.utils.profiling import cuda_time_ms, device_profile, timed
 
 __all__ = [
     "asset_path",
@@ -24,5 +24,6 @@ __all__ = [
     "psnr",
     "read_flo",
     "read_png",
+    "timed",
     "write_flo",
 ]

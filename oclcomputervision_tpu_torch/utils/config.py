@@ -1,7 +1,7 @@
 """Config dataclasses of the ported ops.
 
-Copies of ``HistEqConfig``, ``LocalHistEqConfig``, ``PyramidConfig``,
-``MotionConfig`` and ``RaisrConfig`` from
+Copies of ``HistEqConfig``, ``LocalHistEqConfig``, ``ResizeConfig``,
+``PyramidConfig``, ``MotionConfig`` and ``RaisrConfig`` from
 the JAX package's ``utils/config.py``: the same frozen dataclasses, fields
 and defaults (``tests/test_torch_port_imports.py`` holds them equal).
 """
@@ -32,6 +32,17 @@ class LocalHistEqConfig(HistEqConfig):
     alpha: float = 0.5
     clip: float = 3.0
     blockshape: Tuple[int, int] = (256, 256)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResizeConfig:
+    """Interpolation config. align_corners matches the reference kernels
+    (basic/interpolation.cl:11,58,92: out/(Wout-1)*(Win-1) mapping)."""
+
+    method: str = "bilinear"  # bilinear | bicubic
+    align_corners: bool = True
+    # Catmull-Rom a=-0.5 basis (interpolation.cl:73-78).
+    cubic_a: float = -0.5
 
 
 @dataclasses.dataclass(frozen=True)

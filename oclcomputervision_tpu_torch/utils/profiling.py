@@ -1,9 +1,10 @@
-"""CUDA-event timing of work on the card."""
+"""CUDA-event timing of work on the card, and the wall time of one call."""
 
 from __future__ import annotations
 
 import statistics
-from typing import Callable
+import time
+from typing import Any, Callable, Tuple
 
 import torch
 
@@ -33,6 +34,18 @@ def cuda_time_ms(fn: Callable, *args, warmup: int = 2, iters: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed(fn: Callable, *args, **kwargs) -> Tuple[Any, float]:
+    """Run ``fn(*args, **kwargs)``; return (result, wall ms). For a CUDA
+    tensor result the clock stops after ``torch.cuda.synchronize`` of its
+    device, so the time includes its device work. An exception of ``fn`` or
+    of the synchronize propagates."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    if isinstance(out, torch.Tensor) and out.is_cuda:
+        torch.cuda.synchronize(out.device)
+    return out, (time.perf_counter() - t0) * 1000.0
 
 
 PROFILE_WINDOWS = 3  # profiled windows device_profile tries before it fails

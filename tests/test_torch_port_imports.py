@@ -43,6 +43,13 @@ def _forbidden(name: str) -> bool:
     return top in ("jax", "jaxlib", "oclcomputervision_tpu")
 
 
+def test_import_scan_covers_the_ported_modules():
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for rel in ("ops/interpolation.py", "oracle/interpolation.py", "models/raisr.py",
+                "models/pipeline.py", "compat/__init__.py", "ops/raisr.py"):
+        assert rel in scanned, rel
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
 def test_no_import_of_jax_or_the_jax_package(path):
     with open(path) as f:
@@ -58,7 +65,9 @@ def test_no_import_of_jax_or_the_jax_package(path):
 
 
 @pytest.mark.parametrize(
-    "name", ["HistEqConfig", "LocalHistEqConfig", "PyramidConfig", "MotionConfig", "RaisrConfig"]
+    "name",
+    ["HistEqConfig", "LocalHistEqConfig", "ResizeConfig", "PyramidConfig", "MotionConfig",
+     "RaisrConfig"],
 )
 def test_config_copies_equal_jax(name):
     port_cls, jax_cls = getattr(config, name), getattr(jax_config, name)
@@ -111,20 +120,26 @@ def test_oracle_histeq_copy_equals_jax(case):
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("n_out, n_in", [(47, 23), (10, 31), (2048, 1024)])
 def test_oracle_interpolation_copy_equals_jax(n_out, n_in, dtype):
-    for got, want in zip(
-        port_oracle_interp.axis_weights(n_out, n_in, "bilinear", dtype),
-        jax_oracle_interp.axis_weights(n_out, n_in, "bilinear", dtype),
-    ):
-        assert got.dtype == want.dtype
-        np.testing.assert_array_equal(got, want)
     img = np.random.default_rng(n_in).integers(0, 256, (23, n_in, 3), dtype=np.uint8)
-    for x in (img, img[..., 0]):
-        got = port_oracle_interp.resize_align_corners(x, (40, n_out), "bilinear", dtype)
-        want = jax_oracle_interp.resize_align_corners(x, (40, n_out), "bilinear", dtype)
-        assert got.dtype == want.dtype
-        np.testing.assert_array_equal(got, want)
+    for method in ("bilinear", "bicubic"):
+        for mapping in ("align_corners", "hw_sampler", "half_pixel"):
+            for got, want in zip(
+                port_oracle_interp.axis_weights(n_out, n_in, method, dtype, mapping),
+                jax_oracle_interp.axis_weights(n_out, n_in, method, dtype, mapping),
+            ):
+                assert got.dtype == want.dtype
+                np.testing.assert_array_equal(got, want)
+            for x in (img, img[..., 0]):
+                got = port_oracle_interp.resize_align_corners(x, (40, n_out), method, dtype, mapping)
+                want = jax_oracle_interp.resize_align_corners(x, (40, n_out), method, dtype, mapping)
+                assert got.dtype == want.dtype
+                np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(
+                port_oracle_interp.resize_uint8(img, (40, n_out), method, mapping),
+                jax_oracle_interp.resize_uint8(img, (40, n_out), method, mapping),
+            )
     with pytest.raises(ValueError):
-        port_oracle_interp.axis_weights(n_out, n_in, "bicubic", dtype)
+        port_oracle_interp.axis_weights(n_out, n_in, "nearest", dtype)
 
 
 @pytest.mark.parametrize("scale", [2, 3])
@@ -157,6 +172,15 @@ def test_oracle_raisr_copy_equals_jax(scale):
 def test_oracle_motion_and_pyramid_copies_are_letter_for_letter(module):
     port, jax_side = (
         os.path.join(REPO, pkg, "oracle", f"{module}.py")
+        for pkg in ("oclcomputervision_tpu_torch", "oclcomputervision_tpu")
+    )
+    with open(port) as a, open(jax_side) as b:
+        assert a.read() == b.read()
+
+
+def test_oracle_interpolation_copy_is_letter_for_letter():
+    port, jax_side = (
+        os.path.join(REPO, pkg, "oracle", "interpolation.py")
         for pkg in ("oclcomputervision_tpu_torch", "oclcomputervision_tpu")
     )
     with open(port) as a, open(jax_side) as b:

@@ -142,9 +142,15 @@ def test_entry_and_unported_paths(port_x2):
         args[0].numpy(), args[1].numpy().astype(np.float64), cfg
     )
     assert psnr(out.numpy(), want) > 35
+    # fidelity='shipped' is ported (the bilinear upscale, no bank); an
+    # unknown fidelity still raises
     shipped = dataclasses.replace(port_x2.cfg, fidelity="shipped")
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        raisr_upsample(args[0], port_x2.filters, shipped)
+    got = raisr_upsample(args[0], port_x2.filters, shipped)
+    np.testing.assert_array_equal(got.numpy(), raisr_upsample(args[0], None, shipped).numpy())
+    want = oracle_raisr.raisr_upsample(args[0].numpy(), None, shipped)
+    assert np.abs(got.numpy().astype(int) - want.astype(int)).max() <= 2
+    with pytest.raises(ValueError, match="fidelity"):
+        raisr_upsample(args[0], port_x2.filters, dataclasses.replace(cfg, fidelity="bogus"))
     with pytest.raises(TypeError):
         raisr_upsample(args[0].numpy(), port_x2.filters, cfg)
     # no card here: the default device (the card) raises, never the CPU
