@@ -3,7 +3,7 @@
 inference (and RAISR at configs outside the compiled kernels' domain),
 global and local-block histogram equalization, pyramidal block-matching
 motion estimation, resize, RAISR 'shipped', the RAISR trainer,
-EnhancePipeline and the compat API.
+EnhancePipeline, the compat API and the sharded paths on torch.distributed.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -25,12 +25,20 @@ failure raises, and the script exits non-zero without the result line):
    whole plane (halo and padding columns included), the apply with three
    channels over one bucket map and with bucket maps that are the hash's
    own, one bucket everywhere, uniformly random, and random with entries -1
-   and 216, which must give 0;
+   and 216, which must give 0; and at x2 on phase 8's row bands (a 2048^2
+   LR image in 4 bands of 512 rows and 8 of each neighbour's, zeros beyond
+   the image), the upscale at the image's coordinates;
 3b. each histeq kernel against its plain version, which it must equal: on
    random, natural (lenna tiled, rolled, +-8 noise) and constant batches at
    bench.py's geometries (hist256 and apply_lut on 256x768x1280, hist_tiles
    and blend_blocks on 64x768x1280 at 256x256 blocks), on a 3x101x77 batch
-   and on a row that starts one byte past a 16-byte boundary;
+   and on a row that starts one byte past a 16-byte boundary; and at phase
+   8's geometries: hist256 on a rank's 1080 rows of an 8K frame and
+   apply_lut on them as one row, hist_tiles on a rank's 1024 rows of a
+   4096x8192 image, and blend_blocks on 4096x8192 and on bands of it with
+   their row origin (each rank's 1024 rows, a band from -128, one from row
+   77, one past the bottom; the image's LUTs and random ones), each band
+   also equal to the whole image's blend on its rows;
 3c. each motion-estimation kernel against its plain version, which it must
    equal: the exact search unseeded (SAD and SSD; 2 noisy VGA pairs, a
    3x101x77 batch, the 9/3 and 11/5 geometries) and seeded (seeds in +-6,
@@ -42,7 +50,10 @@ failure raises, and the script exits non-zero without the result line):
    put column w - 2 on either side of its tile and warp edges, on frames
    narrower and shorter than a tile and a patch, and SSD on frames of 0
    against 255; the median kernel alone on the same shapes and on frames 1
-   pixel wide or tall, states in +-6 and +-2^20;
+   pixel wide or tall, states in +-6 and +-2^20; and phase 8's bands of a
+   2160x3840 pair: the fast iteration on each rank's rows inside the image
+   with 17 of each neighbour's (557 and 574 rows), the exact search on its
+   rows with 10 of each neighbour's (560 rows, zeros beyond the image);
 3d. the RAISR kernels at configs outside the compiled forms' domain (x2
    with filter_len 7, gauss_len 7 and 5 strength quantizers; x2 with
    filter_len 13; x5; x2 with filter_len 17 and 5 strength quantizers,
@@ -152,7 +163,24 @@ failure raises, and the script exits non-zero without the result line):
    use_gpu=False or numpy oracle counterpart (histeq global and local,
    HistEq's three methods, Utility's three, Raisr, the exact search with and
    without a seed, gaussian_pyramid, upscale_mv), each with the kernels it
-   must launch.
+   must launch;
+8. the sharded paths of ``oclcomputervision_tpu_torch.parallel`` on
+   ``torch.distributed``, each at full size: global histeq on a 4320x7680
+   frame, local histeq on 4096x8192 at 256^2 blocks (clahe_clip 0 and 2),
+   fast and exact motion (15/5) on a 2160x3840 pair of frame10/11 tiles
+   with noise, RAISR x2 (the shipped bank, halo 8) on a 2048^2 LR image,
+   ``raisr_train_step`` (RaisrConfig(), a (2, 2) dp x tp mesh) on phase
+   7c's corpus through the trainer's features, and
+   ``EnhancePipeline.sharded`` on phase 7d's stack; first on 4 gloo ranks
+   sharing the card (``parallel/launch.py`` in a child process; NCCL
+   refuses two ranks on one device), then on one NCCL rank with CUDA
+   tensors. Each result must equal the single-device op on the card bit
+   for bit (the train step's bank within atol 5e-3, rtol 1e-2 and its
+   frame11 x2 PSNR within 0.01 dB), and every rank must launch the path's
+   kernels; one line per path gives the wall ms on 4 ranks, on 1 rank and
+   of the single-device op. The ranks' launches stand in the kernels line
+   beside the main paths' (``sharded_launches``: per path, the 4 gloo
+   ranks' together and the NCCL rank's apart).
 
 Prints the per-kernel JSON line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -619,6 +647,53 @@ def tiling_cases(model, rng, device):
         raise AssertionError(f"upscale kernel off by {up_worst}")
     if not ap_worst <= APPLY_TOL:
         raise AssertionError(f"apply kernel off by {ap_worst}")
+    return {"upscale_planes": up_worst, "raisr_apply": ap_worst, "raisr_hash": hash_worst}
+
+
+def band_cases(model, rng, device):
+    """Phase 3, the RAISR kernels on phase 8's row bands: a SHARD_LR^2 LR
+    image cut into SHARD_RANKS bands of its rows and SHARD_HALO rows of each
+    neighbour's (zeros beyond the image), as ``raisr_upsample_sharded`` hands
+    them to ``ops.raisr._raisr_band``: the upscale at the image's
+    coordinates (row ``row0`` of an image of SHARD_LR rows), the hash and
+    the apply on its planes, each against its plain version."""
+    import torch
+
+    from oclcomputervision_tpu_torch.kernels import raisr as kr
+    from oclcomputervision_tpu_torch.kernels import upscale as ku
+    from oclcomputervision_tpu_torch.ops.raisr import plane_geometry, true_div
+
+    cfg = model.cfg
+    lr = torch.from_numpy(lenna_batch(rng, 1, SHARD_LR)[0]).to(device)
+    h_loc = SHARD_LR // SHARD_RANKS
+    rows = h_loc + 2 * SHARD_HALO
+    geo = plane_geometry(rows, SHARD_LR, cfg)
+    up_worst = ap_worst = 0.0
+    hash_worst = 1.0
+    for r in range(SHARD_RANKS):
+        row0 = r * h_loc - SHARD_HALO
+        band = torch.zeros((1, rows, SHARD_LR), dtype=torch.uint8, device=device)
+        lo, hi = max(0, row0), min(SHARD_LR, row0 + rows)
+        band[0, lo - row0 : hi - row0] = lr[lo:hi]
+        x01 = true_div(band.to(torch.float32), 255.0)
+        up_k = ku.upscale_planes_kernel(x01, cfg, geo.hq, geo.wq, geo.hp, row0, SHARD_LR)
+        up_p = ku.upscale_planes(x01, cfg, geo.hq, geo.wq, geo.hp, row0, SHARD_LR)
+        up_err = (up_k - up_p).abs().max().item()
+        tag = f"band {r} (LR rows {row0}:{row0 + rows} of {SHARD_LR})"
+        agree, _, hb = hash_agreement(f"{tag} planes {tuple(up_k.shape)}", cfg, up_k, geo.hp,
+                                      geo.h2p, geo.w2p)
+        ap_k = kr.apply_filters_planes_kernel(up_k, hb, model.filters, cfg)
+        ap_p = kr.apply_filters_planes(up_k, hb, model.filters, cfg)
+        torch.cuda.synchronize()
+        ap_err = (ap_k - ap_p).abs().max().item()
+        print(f"x{cfg.scale} {tag}: upscale_planes max|kernel - plain| = {up_err:.3e}, "
+              f"raisr_apply max|kernel - plain| = {ap_err:.3e}")
+        up_worst, ap_worst = max(up_worst, up_err), max(ap_worst, ap_err)
+        hash_worst = min(hash_worst, agree)
+    if not up_worst <= UPSCALE_TOL:
+        raise AssertionError(f"upscale kernel off by {up_worst} on a band")
+    if not ap_worst <= APPLY_TOL:
+        raise AssertionError(f"apply kernel off by {ap_worst} on a band")
     return {"upscale_planes": up_worst, "raisr_apply": ap_worst, "raisr_hash": hash_worst}
 
 
@@ -1251,6 +1326,45 @@ def histeq_kernel_vs_plain(batches, rng, device):
     check("hist256", "offset", kh.hist256_kernel(row), kh.hist256(row))
     lut = torch.randint(0, 256, (1, 256), generator=gen, device=device, dtype=torch.uint8)
     check("apply_lut", "offset", kh.apply_lut_kernel(row, lut), kh.apply_lut(row, lut))
+    # a rank's rows of phase 8's 8K frame, as histeq_global_sharded hands
+    # them over: one histogram per row, then one LUT over all of them
+    h, w = SHARD_GLOBAL
+    shard = batches["natural"].reshape(-1)[: h // SHARD_RANKS * w].reshape(-1, w)
+    check("hist256", "8K rank rows", kh.hist256_kernel(shard), kh.hist256(shard))
+    flat = shard.reshape(1, -1)
+    check("apply_lut", "8K rank rows", kh.apply_lut_kernel(flat, lut), kh.apply_lut(flat, lut))
+    # the blend of phase 8's bands of a 4096 x 8192 image (each rank's rows
+    # from y0 = rank x rows, the whole image's LUT grid), of a band from
+    # -bh/2 (apply_block_mappings_band's first: rows above the image are
+    # zero), one from an unaligned row and one that reaches past the bottom
+    # into the padding; with the image's own LUTs and random ones outside
+    # [0, 255]. Each must also equal the whole image's blend on its rows.
+    h, w = SHARD_LOCAL
+    bh = BLOCK[0]
+    img = torch.from_numpy(lenna_batch(rng, 1, h, w)).to(device)
+    tiles = kl.hist_tiles(img, BLOCK)
+    h_loc = h // SHARD_RANKS
+    for r in range(SHARD_RANKS):  # histeq_local_sharded's tile histograms of a rank's rows
+        part = img[:, r * h_loc : (r + 1) * h_loc].contiguous()
+        check("hist_tiles", f"4096 x 8192 rank {r} rows", kl.hist_tiles_kernel(part, BLOCK),
+              tiles[:, r * h_loc // BLOCK[0] : (r + 1) * h_loc // BLOCK[0]])
+    bands = [(r * h_loc, h_loc) for r in range(SHARD_RANKS)]
+    bands += [(-(bh // 2), 3 * bh), (77, 300), (h - 333, 333 + bh // 2)]
+    luts = {"own": calc_transfer_func(tiles, 0.5, 0.05, 3.0),
+            "random": torch.rand(tiles.shape, generator=gen, device=device) * 300.0 - 20.0}
+    for kind, m4 in luts.items():
+        whole = kl.blend_blocks_kernel(img, m4, BLOCK)
+        check("blend_blocks", f"4096 x 8192, {kind} LUTs", whole, kl.blend_blocks(img, m4, BLOCK))
+        for y0, rows in bands:
+            band = torch.zeros((1, rows, w), dtype=torch.uint8, device=device)
+            lo, hi = max(0, y0), min(h, y0 + rows)
+            band[0, lo - y0 : hi - y0] = img[0, lo:hi]
+            got = kl.blend_blocks_kernel(band, m4, BLOCK, y0)
+            check("blend_blocks", f"band y0 {y0}, {kind} LUTs", got,
+                  kl.blend_blocks(band, m4, BLOCK, y0))
+            if not torch.equal(got[0, lo - y0 : hi - y0], whole[0, lo:hi]):
+                raise AssertionError(f"blend_blocks band y0 {y0}, {kind} LUTs: not the whole "
+                                     f"image's rows {lo}:{hi}")
     bad = {k: v for k, v in errs.items() if v != 0.0}
     if bad:
         raise AssertionError(f"histeq kernels differ from their plain versions: {bad}")
@@ -1481,6 +1595,7 @@ def me_kernel_vs_plain(rng, device):
     the searches are integer, so they must be equal."""
     import warnings
 
+    import numpy as np
     import torch
 
     from oclcomputervision_tpu_torch.kernels import motion as km
@@ -1613,6 +1728,31 @@ def me_kernel_vs_plain(rng, device):
         check(("me_exact",), f"vga seeds +-200 on 2 % of pixels, no bound, {mode}",
               km.me_exact_kernel(f0, f1, *ME_GEOMETRY, "sad", far, None, mode),
               km.me_exact(f0, f1, *ME_GEOMETRY, "sad", far, None, mode))
+    # phase 8's bands of a 4K pair (the pair tiled): the fast iteration on
+    # each rank's rows inside the image with fast_halo_rows() of each
+    # neighbour's (as _fast_residual_band runs it), the exact search on its
+    # rows with exact_halo_rows() of each neighbour's, zeros beyond the image
+    # (as motion_exact_sharded runs it)
+    h, w = SHARD_ME
+    big = [torch.from_numpy(np.ascontiguousarray(
+        np.tile(f[0], (-(-h // f.shape[1]), -(-w // f.shape[2])))[:h, :w])).to(device)
+        for f in (n0, n1)]
+    h_loc = h // SHARD_RANKS
+    hf, he = om.fast_halo_rows(*ME_GEOMETRY), om.exact_halo_rows(*ME_GEOMETRY)
+    for r in range(SHARD_RANKS):
+        lo, hi = max(0, r * h_loc - hf), min(h, (r + 1) * h_loc + hf)
+        b0, b1 = (f[lo:hi][None].contiguous() for f in big)
+        check(fast, f"4K band {r}, rows {lo}:{hi}", km.me_fast_kernel(b0, b1, *ME_GEOMETRY, "sad"),
+              km.me_fast(b0, b1, *ME_GEOMETRY, "sad"))
+        r0 = r * h_loc - he
+        b0, b1 = (torch.zeros((1, h_loc + 2 * he, w), dtype=torch.uint8, device=device)
+                  for _ in range(2))
+        lo, hi = max(0, r0), min(h, r0 + b0.shape[1])
+        for b, f in ((b0, big[0]), (b1, big[1])):
+            b[0, lo - r0 : hi - r0] = f[lo:hi]
+        check(("me_exact",), f"4K band {r}, rows {r0}:{r0 + b0.shape[1]}",
+              km.me_exact_kernel(b0, b1, *ME_GEOMETRY, "sad"),
+              km.me_exact(b0, b1, *ME_GEOMETRY, "sad"))
     bad = {k: v for k, v in errs.items() if v != 0.0}
     if bad:
         raise AssertionError(f"motion kernels differ from their plain versions: {bad}")
@@ -2332,6 +2472,281 @@ def compat_phase(rng, device):
     return res
 
 
+# phase 8: the row-sharded and data-parallel paths (oclcomputervision_tpu_torch/parallel)
+SHARD_RANKS = 4  # gloo ranks sharing the one card: NCCL takes one rank per card
+SHARD_GLOBAL = (4320, 7680)  # one 8K frame
+SHARD_LOCAL = (4096, 8192)  # 16 x 32 blocks of 256^2: 4 block rows a rank
+SHARD_ME = (2160, 3840)  # one 4K pair: 540 rows a rank
+SHARD_LR = 2048  # RAISR x2, 2048^2 -> 4096^2
+SHARD_HALO = 8
+SHARD_TRAIN_TOL = {"atol": 5e-3, "rtol": 1e-2}  # tests/test_parallel.py:130-132
+SHARD_DB_TOL = 0.01  # frame11 x2 PSNR, the sharded bank against the single-device one
+SHARD_REPS = 3  # timed calls after the first, whose launches are counted
+SHARD_TIMEOUT_S = 420
+# the kernels each sharded path must launch on every rank
+SHARD_KERNELS = {
+    "histeq_global": GLOBAL_KERNELS,
+    "histeq_local_clahe0": LOCAL_KERNELS,
+    "histeq_local_clahe2": LOCAL_KERNELS,
+    "motion_fast": ("me_fast_round", "me_fast_median"),
+    "motion_exact": ("me_exact",),
+    "raisr": RAISR_KERNELS,
+    # the train step's global arrays, which every rank makes of the corpus;
+    # the step itself is torch.matmul per bucket piece and torch.linalg.solve
+    "train_features": ("upscale_planes", "raisr_hash"),
+    "train": (),
+    "pipeline": GLOBAL_KERNELS + RAISR_KERNELS,
+}
+
+
+def shard_inputs(seed: int) -> dict:
+    """Phase 8's global arrays, the same in every process that makes them
+    from ``seed``: an 8K and a 4096 x 8192 frame and a 2048^2 LR image of
+    lenna tiles (``lenna_batch``), a 4K pair of frame10/11 tiles with +-4
+    noise, and phase 7d's 16 x 768 x 1280 stack."""
+    import numpy as np
+
+    from oclcomputervision_tpu_torch.utils import load_gray
+
+    rng = np.random.default_rng(seed + 8)
+    h, w = SHARD_ME
+    pair = []
+    for name in ("frame10.png", "frame11.png"):
+        f = load_gray(name)
+        tile = np.tile(f, (-(-h // f.shape[0]), -(-w // f.shape[1])))[:h, :w]
+        pair.append(np.clip(tile.astype(np.int16) + rng.integers(-4, 5, (h, w)), 0, 255)
+                    .astype(np.uint8))
+    return {"global": lenna_batch(rng, 1, *SHARD_GLOBAL)[0],
+            "local": lenna_batch(rng, 1, *SHARD_LOCAL)[0],
+            "f0": pair[0], "f1": pair[1],
+            "lr": lenna_batch(rng, 1, SHARD_LR)[0],
+            "pipe": lenna_batch(rng, *PIPE_SHAPE)}
+
+
+def shard_train_arrays(device):
+    """The train step's global arrays: phase 7c's corpus through the
+    trainer's features (the upscale and hash kernels), concatenated, cut to
+    an even count of pixels (the dp axis is 2)."""
+    import numpy as np
+    import torch
+
+    from oclcomputervision_tpu_torch.models.raisr import _training_arrays, hr_luma01
+    from oclcomputervision_tpu_torch.utils.config import RaisrConfig
+
+    feats = [_training_arrays(torch.from_numpy(hr_luma01(im).astype(np.float32)).to(device),
+                              RaisrConfig()) for im in train_corpus()]
+    p, t, f = (torch.cat(z) for z in zip(*feats))
+    n = p.shape[0] - p.shape[0] % 2
+    return p[:n], t[:n], f[:n]
+
+
+def _pipe_cfg():
+    from oclcomputervision_tpu_torch.models import EnhanceConfig
+
+    return EnhanceConfig(equalize="global", superres="raisr", resize_to=PIPE_RESIZE,
+                         resize_method="bicubic", pyramid_depth=PIPE_DEPTH)
+
+
+def shard_paths(x, train, model, mesh, mesh_dp_tp) -> dict:
+    """Each sharded entry point on phase 8's inputs, as a call."""
+    from oclcomputervision_tpu_torch import parallel
+    from oclcomputervision_tpu_torch.models import EnhancePipeline
+
+    nf, fl = model.cfg.num_filters, model.cfg.filter_len
+    pipe = EnhancePipeline(_pipe_cfg(), raisr_model=model).sharded(mesh)
+    return {
+        "histeq_global": lambda: parallel.histeq_global_sharded(x["global"], mesh),
+        "histeq_local_clahe0": lambda: parallel.histeq_local_sharded(
+            x["local"], mesh, blockshape=BLOCK),
+        "histeq_local_clahe2": lambda: parallel.histeq_local_sharded(
+            x["local"], mesh, blockshape=BLOCK, clahe_clip=2.0),
+        "motion_fast": lambda: parallel.motion_fast_sharded(x["f0"], x["f1"], mesh, "data",
+                                                            *ME_GEOMETRY),
+        "motion_exact": lambda: parallel.motion_exact_sharded(x["f0"], x["f1"], mesh, "data",
+                                                              *ME_GEOMETRY),
+        "raisr": lambda: parallel.raisr_upsample_sharded(x["lr"], model.filters, model.cfg, mesh,
+                                                         halo=SHARD_HALO),
+        "train": lambda: parallel.raisr_train_step(*train, nf, fl, mesh_dp_tp),
+        "pipeline": lambda: pipe(x["pipe"]),
+    }
+
+
+def shard_singles(x, train, model, device) -> dict:
+    """The single-device op of each sharded path, on the same inputs."""
+    from oclcomputervision_tpu_torch import ops
+    from oclcomputervision_tpu_torch.models import EnhancePipeline
+    from oclcomputervision_tpu_torch.models.raisr import accumulate_normal_eq, solve_filters
+
+    nf, fl = model.cfg.num_filters, model.cfg.filter_len
+    pipe = EnhancePipeline(_pipe_cfg(), raisr_model=model)
+    on = {"device": device}
+    return {
+        "histeq_global": lambda: ops.histeq_global(x["global"], **on),
+        "histeq_local_clahe0": lambda: ops.histeq_local_block(x["local"], blockshape=BLOCK, **on),
+        "histeq_local_clahe2": lambda: ops.histeq_local_block(x["local"], blockshape=BLOCK,
+                                                              clahe_clip=2.0, **on),
+        "motion_fast": lambda: ops.estimate_motion_vector(x["f0"], x["f1"], *ME_GEOMETRY,
+                                                          method="fast", **on),
+        "motion_exact": lambda: ops.estimate_motion_vector(x["f0"], x["f1"], *ME_GEOMETRY,
+                                                           method="exact", **on),
+        "raisr": lambda: model.upsample(x["lr"]),
+        # raisr_train_step's defaults: chunk 256, ridge 0.03
+        "train": lambda: solve_filters(*accumulate_normal_eq(*train, nf, 256), fl),
+        "pipeline": lambda: pipe(x["pipe"], **on),
+    }
+
+
+def _flat(out) -> list:
+    """An output (a tensor, or a tuple or list of them, nested) as a list."""
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+def sharded_rank(device, out_dir: str, seed: str) -> None:
+    """Phase 8's rank body, run by parallel/launch.py on every rank: each
+    sharded path once with the launch counts reset before it (rank 0 saves
+    the gathered outputs), then SHARD_REPS timed calls between barriers.
+    Writes rank<r>.json: the launches and the median wall ms of each path."""
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from oclcomputervision_tpu_torch import parallel
+    from oclcomputervision_tpu_torch.kernels import _build
+    from oclcomputervision_tpu_torch.models import RaisrModel
+    from oclcomputervision_tpu_torch.utils import asset_path
+
+    rank, n = dist.get_rank(), dist.get_world_size()
+    x = shard_inputs(int(seed))
+    model = RaisrModel.load(asset_path("raisr_filters_x2.npz"), device=device)
+    _build.reset_launches()
+    train = shard_train_arrays(device)
+    torch.cuda.synchronize()
+    rec = {"launches": {"train_features": dict(_build.LAUNCHES)}, "ms": {}}
+    dp = 2 if n % 2 == 0 else 1
+    mesh = parallel.make_mesh(device=device)
+    mesh_dp_tp = parallel.make_mesh((dp, n // dp), ("dp", "tp"), device=device)
+    if dist.get_backend() == "nccl":
+        def barrier():
+            dist.barrier(device_ids=[device.index])
+    else:
+        barrier = dist.barrier
+    for name, fn in shard_paths(x, train, model, mesh, mesh_dp_tp).items():
+        torch.cuda.synchronize()
+        barrier()
+        _build.reset_launches()
+        out = _flat(fn())
+        torch.cuda.synchronize()
+        rec["launches"][name] = dict(_build.LAUNCHES)
+        if rank == 0:
+            for k, o in enumerate(out):
+                np.save(os.path.join(out_dir, f"{name}.{k}.npy"), o.cpu().numpy())
+        del out
+        times = []
+        for _ in range(SHARD_REPS):
+            barrier()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        rec["ms"][name] = statistics.median(times)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
+
+
+def _run_ranks(nproc: int, backend: str, out_dir: str, seed: int) -> float:
+    """Run ``sharded_rank`` on ``nproc`` ranks on the card through
+    ``parallel.launch.spawn`` (its session killed whole on a timeout); raises
+    if any rank fails. Returns the seconds the run took, spawning included."""
+    from oclcomputervision_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    spawn(nproc, f"{os.path.abspath(__file__)}:sharded_rank", (out_dir, seed), backend, "cuda",
+          timeout=SHARD_TIMEOUT_S)
+    return time.perf_counter() - t0
+
+
+def sharded_phase(seed: int, card, device):
+    """Phase 8: each sharded path (``shard_paths``) on SHARD_RANKS gloo ranks
+    sharing the card, then on one NCCL rank, held against the single-device
+    op on the card: equal bit for bit, the train step's bank within
+    SHARD_TRAIN_TOL and its frame11 x2 PSNR within SHARD_DB_TOL. Returns the
+    per-path record and the ranks' launches summed per kernel and path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from oclcomputervision_tpu_torch.models import RaisrModel
+    from oclcomputervision_tpu_torch.utils import asset_path, load_gray, psnr
+
+    x = shard_inputs(seed)
+    model = RaisrModel.load(asset_path("raisr_filters_x2.npz"), device=device)
+    train = shard_train_arrays(device)
+    refs, single_ms = {}, {}
+    for name, fn in shard_singles(x, train, model, device).items():
+        refs[name] = [o.cpu().numpy() for o in _flat(fn())]
+        single_ms[name] = wall_ms(fn, warmup=0, iters=SHARD_REPS)
+    del train
+    torch.cuda.empty_cache()
+    hr11, lr11 = degrade(load_gray("frame11.png"), 2)
+
+    def bank_db(bank):
+        return psnr(RaisrModel(model.cfg, torch.from_numpy(bank).to(device)).upsample(lr11)
+                    .cpu().numpy(), hr11)
+
+    single_db = bank_db(refs["train"][0])
+    runs = {}
+    for tag, nproc, backend in (("gloo", SHARD_RANKS, "gloo"), ("nccl", 1, "nccl")):
+        with tempfile.TemporaryDirectory() as out_dir:
+            secs = _run_ranks(nproc, backend, out_dir, seed)
+            recs = []
+            for r in range(nproc):
+                with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+                    recs.append(json.load(fh))
+            for name, need in SHARD_KERNELS.items():
+                missing = [(r, k) for r, rec in enumerate(recs) for k in need
+                           if rec["launches"][name][k] < 1]
+                if missing:
+                    raise AssertionError(f"phase 8 {tag} {name}: ranks launched no {missing}")
+                runs.setdefault(name, {})[tag] = {
+                    "launches": {k: sum(rec["launches"][name][k] for rec in recs)
+                                 for k in KERNELS}}
+            for name, want in refs.items():
+                got = [np.load(os.path.join(out_dir, f"{name}.{k}.npy")) for k in range(len(want))]
+                if any(g.shape != w.shape for g, w in zip(got, want)):
+                    raise AssertionError(f"phase 8 {tag} {name}: shapes {[g.shape for g in got]}")
+                if name == "train":
+                    err = float(np.abs(got[0] - want[0]).max())
+                    db = bank_db(got[0])
+                    ok = bool(np.allclose(got[0], want[0], **SHARD_TRAIN_TOL))
+                    ok = ok and abs(db - single_db) <= SHARD_DB_TOL
+                    what = (f"bank max |diff| {err:.3e} (allclose {SHARD_TRAIN_TOL}), frame11 x2 "
+                            f"{db:.4f} dB vs {single_db:.4f} single-device (max off {SHARD_DB_TOL})")
+                else:
+                    ok = all(np.array_equal(g, w) for g, w in zip(got, want))
+                    what = "equal to the single-device op bit for bit" if ok else "DIFFERS"
+                runs[name][tag].update(ms=max(rec["ms"][name] for rec in recs), check=what)
+                if not ok:
+                    raise AssertionError(f"phase 8 {tag} {name}: {what}")
+            print(f"phase 8: {nproc} {backend} rank(s) ran every path in {secs:.2f} s, spawning "
+                  f"included")
+    for name in refs:
+        run = runs[name]
+        print(f"[{card}] sharded {name}: {SHARD_RANKS} gloo ranks {run['gloo']['ms']:.4f} ms, "
+              f"1 NCCL rank {run['nccl']['ms']:.4f} ms, the single-device op "
+              f"{single_ms[name]:.4f} ms (wall, median of {SHARD_REPS}; the {SHARD_RANKS} ranks "
+              f"share one card and stage their collectives through host memory, so this is the "
+              f"cost of the collectives, not scaling); {run['gloo']['check']}; 1 rank: "
+              f"{run['nccl']['check']}")
+        run["single_ms"] = single_ms[name]
+    return runs
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="input noise and rolls")
@@ -2367,7 +2782,7 @@ def main() -> int:
     # phase 3: kernels against their plain versions (x3 and x4 at a small size)
     errs = kernel_vs_plain(model, lenna_batch(rng, 2, LR), device)
     hash_agree = [errs["raisr_hash"]["agreement"], hash_contents(model, rng, device)]
-    tiled = [tiling_cases(model, rng, device)]
+    tiled = [tiling_cases(model, rng, device), band_cases(model, rng, device)]
     worst = []
     for scale in (3, 4):
         other = RaisrModel.load(asset_path(f"raisr_filters_x{scale}.npz"), device=device)
@@ -2450,6 +2865,16 @@ def main() -> int:
     e2e["enhance_pipeline"] = pipeline_phase(rng, card, device)
     e2e["compat"] = compat_phase(rng, device)
 
+    # phase 8: the sharded paths on torch.distributed, on 4 gloo ranks and 1 NCCL rank;
+    # the ranks' launches stand beside the main paths' in the kernels line
+    e2e["sharded"] = sharded_phase(args.seed, card, device)
+    # per kernel, each sharded path that launched it: the launches of its
+    # SHARD_RANKS gloo ranks together and of its one NCCL rank, apart
+    sharded = {k: {path: {b: r[b]["launches"][k] for b in ("gloo", "nccl")}
+                   for path, r in e2e["sharded"].items()
+                   if r["gloo"]["launches"][k] or r["nccl"]["launches"][k]}
+               for k in KERNELS}
+
     kernels = [
         {
             "name": name,
@@ -2457,6 +2882,7 @@ def main() -> int:
             "source": src,
             "replaces": replaces,
             "launches": launches[name],
+            "sharded_launches": sharded[name],
             **errs[name],
             **times[name],
         }

@@ -10,7 +10,11 @@ Layers (counterparts of the JAX package's modules of the same names):
   built with nvcc and bound with ctypes, each beside its plain PyTorch version.
 - ``ops``: plain PyTorch pipelines around the kernels (RAISR inference,
   global and local-block histogram equalization).
-- ``models``: ``RaisrModel``, the filter bank as an ``nn.Module``.
+- ``models``: ``RaisrModel``, the filter bank as an ``nn.Module``, its
+  trainer and ``EnhancePipeline``.
+- ``parallel``: the sharding strategies on ``torch.distributed`` (a mesh
+  over the process group, row-sharded histeq, motion and RAISR, the dp + tp
+  RAISR train step) and ``parallel.launch``, which starts the ranks.
 - ``utils``: configs, asset paths, PSNR, a stdlib PNG reader and CUDA-event
   timing.
 - ``oracle``: the numpy oracles (histeq, interpolation, RAISR).

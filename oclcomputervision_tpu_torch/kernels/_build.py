@@ -89,8 +89,8 @@ _SIGNATURES = {
     "ocvk_apply_lut": [_VP] * 3 + [_I] * 2 + [_VP],
     # x, out, nimg, h, w, th, tw, rows_per_block, stream
     "ocvk_hist_tiles": [_VP] * 2 + [_I] * 6 + [_VP],
-    # x, m, out, nimg, h, w, nby, nbx, bh, bw, rows_per_block, stream
-    "ocvk_blend_blocks": [_VP] * 3 + [_I] * 8 + [_VP],
+    # x, m, out, nimg, h, w, row0, nby, nbx, bh, bw, rows_per_block, stream
+    "ocvk_blend_blocks": [_VP] * 3 + [_I] * 9 + [_VP],
     # f0, f1, seed, out, steps (host ints), nsteps, nimg, h, w, ps, ssd,
     # bound, shipped, win_cap, stream
     "ocvk_me_exact": [_VP] * 5 + [_I] * 9 + [_VP],

@@ -1,6 +1,8 @@
 // Local-block histeq blend: per pixel, the bilinear blend of the 4 nearest
 // block LUTs. x [B, H, W] uint8, m [B, nby, nbx, 256] float32 LUT grid ->
-// out [B, H, W] uint8.
+// out [B, H, W] uint8. Row 0 of x is image row row0 of the grid's image: a
+// row band of it (the row-sharded local histeq, ops/histeq.py's
+// apply_block_mappings_band), or the whole image at row0 = 0.
 //
 // Replaces two TPU kernels of oclcomputervision_tpu/ops/pallas/localeq_pallas.py:
 // _blend_blocks (body _make_block_kernel; images the blocks divide) and
@@ -11,7 +13,7 @@
 //
 // Semantics: the XLA twin ops/histeq.apply_block_mappings (hist.cl:104-147).
 // The image is seen shifted down and right by half a block (padded row
-// py = y + bh/2); padded tile (ty, tx) = (py / bh, px / bw), in-tile ramps
+// py = row0 + y + bh/2); padded tile (ty, tx) = (py / bh, px / bw), in-tile ramps
 // t = (py % bh) / bh and s = (px % bw) / bw, corner LUTs from the
 // edge-replicated grid P[k] = M[clip(k - 1, 0, n - 1)]:
 //   out = (1-s)(1-t) P[ty][tx] + s(1-t) P[ty][tx+1] + (1-s)t P[ty+1][tx]
@@ -19,8 +21,9 @@
 // evaluated in that order with every product and sum rounded separately
 // (the library builds with -fmad=false), clipped to [0, 255] and truncated:
 // bit for bit the plain PyTorch version (kernels/localeq.blend_blocks). The
-// image must fit the padded grid: H <= (nby + 1) bh - bh/2 and
-// W <= (nbx + 1) bw - bw/2.
+// band must fit the padded grid: -bh/2 <= row0, row0 + H <= (nby + 1) bh -
+// bh/2 and W <= (nbx + 1) bw - bw/2. The grid's rows are the padded tile
+// rows the band touches, from tile ty_first.
 //
 // What bounds it on the H100: device memory, one read and one write of the
 // image (at the bench geometry 64 x 768 x 1280: 126 MB, about 38 us at
@@ -78,14 +81,16 @@ __device__ __forceinline__ uint32_t blend(const float4 c, float oms, float s, fl
 // blocks)
 __global__ void __launch_bounds__(kThreads, 5)
     blend_blocks_kernel(const uint8_t* __restrict__ x, const float* __restrict__ m,
-                        uint8_t* __restrict__ out, int h, int w, int nby, int nbx,
-                        int bh, int bw, int rows_per_block, int nsplit) {
+                        uint8_t* __restrict__ out, int h, int w, int row0, int nby,
+                        int nbx, int bh, int bw, int rows_per_block, int nsplit,
+                        int ty_first) {
   __shared__ float4 tab[256 * kCopies];
   const int tx = blockIdx.x;
-  const int ty = blockIdx.y / nsplit;
-  const int split = blockIdx.y - ty * nsplit;
-  // image row / column of the padded tile's first row / column
-  const int y_top = ty * bh - bh / 2;
+  const int tyl = blockIdx.y / nsplit;
+  const int ty = ty_first + tyl;
+  const int split = blockIdx.y - tyl * nsplit;
+  // band row / image column of the padded tile's first row / column
+  const int y_top = ty * bh - bh / 2 - row0;
   const int x_left = tx * bw - bw / 2;
   const int y0 = max(0, y_top + split * rows_per_block);
   const int y1 = min(h, y_top + min(bh, (split + 1) * rows_per_block));
@@ -180,11 +185,15 @@ __global__ void __launch_bounds__(kThreads, 5)
 }  // namespace
 
 extern "C" int ocvk_blend_blocks(const uint8_t* x, const float* m, uint8_t* out, int nimg,
-                                 int h, int w, int nby, int nbx, int bh, int bw,
+                                 int h, int w, int row0, int nby, int nbx, int bh, int bw,
                                  int rows_per_block, void* stream) {
   const int nsplit = (bh + rows_per_block - 1) / rows_per_block;
-  const dim3 grid(nbx + 1, (nby + 1) * nsplit, nimg);
+  // the padded tile rows of the band's first and last rows (row0 >= -bh/2,
+  // so the padded rows are >= 0): kernels/localeq.blend_tile_rows
+  const int ty_first = (row0 + bh / 2) / bh;
+  const int ty_last = (row0 + h - 1 + bh / 2) / bh;
+  const dim3 grid(nbx + 1, (ty_last - ty_first + 1) * nsplit, nimg);
   blend_blocks_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, m, out, h, w, nby, nbx, bh, bw, rows_per_block, nsplit);
+      x, m, out, h, w, row0, nby, nbx, bh, bw, rows_per_block, nsplit, ty_first);
   return static_cast<int>(cudaGetLastError());
 }

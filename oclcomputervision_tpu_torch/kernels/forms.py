@@ -135,7 +135,7 @@ def blend_case(device):
 
     def run(lib):
         _, fn = entry(lib, "blend_blocks")
-        _check(fn(x.data_ptr(), m4.data_ptr(), out.data_ptr(), b, h, w, nby, nbx, *block, rpb,
+        _check(fn(x.data_ptr(), m4.data_ptr(), out.data_ptr(), b, h, w, 0, nby, nbx, *block, rpb,
                   torch.cuda.current_stream().cuda_stream))
         return out
 

@@ -41,15 +41,18 @@ def _check_tile(shape, tile) -> None:
         raise ValueError(f"image {tuple(shape)} not divisible by tile {tuple(tile)}")
 
 
-def _check_blend_geometry(h: int, w: int, nby: int, nbx: int, blockshape) -> None:
-    """Raise unless an [H, W] image fits the half-block-shifted LUT grid
-    (the XLA twin's padding: H <= (nby + 1) bh - bh/2, likewise W)."""
+def _check_blend_geometry(h: int, w: int, nby: int, nbx: int, blockshape, y0: int = 0) -> None:
+    """Raise unless an [H, W] band whose row 0 is image row ``y0`` fits the
+    half-block-shifted LUT grid (the XLA twin's padding: -bh/2 <= y0 and
+    y0 + H <= (nby + 1) bh - bh/2, likewise W from column 0)."""
     bh, bw = blockshape
     if nby < 1 or nbx < 1 or bh < 1 or bw < 1:
         raise ValueError(f"empty LUT grid {nby}x{nbx} or block {tuple(blockshape)}")
-    if h > (nby + 1) * bh - bh // 2 or w > (nbx + 1) * bw - bw // 2:
+    if y0 < -(bh // 2):
+        raise ValueError(f"band row 0 at image row {y0} lies above the padded grid (min {-(bh // 2)})")
+    if y0 + h > (nby + 1) * bh - bh // 2 or w > (nbx + 1) * bw - bw // 2:
         raise ValueError(
-            f"image {h}x{w} exceeds the {nby}x{nbx} LUT grid of {bh}x{bw} blocks "
+            f"image {y0 + h}x{w} exceeds the {nby}x{nbx} LUT grid of {bh}x{bw} blocks "
             f"(at most {(nby + 1) * bh - bh // 2}x{(nbx + 1) * bw - bw // 2})"
         )
 
@@ -92,10 +95,11 @@ def hist_tiles_kernel(g3: torch.Tensor, tile) -> torch.Tensor:
     return counts.float()
 
 
-def _axis(n: int, nb: int, blk: int, device):
-    """Per pixel of one axis: the lower and upper corner LUT indices and the
-    in-tile ramp, for the grid shifted by half a block."""
-    p = torch.arange(n, device=device) + blk // 2
+def _axis(n: int, nb: int, blk: int, device, origin: int = 0):
+    """Per pixel of one axis whose index 0 is image index ``origin``: the
+    lower and upper corner LUT indices and the in-tile ramp, for the grid
+    shifted by half a block."""
+    p = torch.arange(n, device=device) + (origin + blk // 2)
     k = torch.div(p, blk, rounding_mode="floor")
     # a true division: on CUDA, dividing by a Python scalar multiplies by
     # its reciprocal instead, which can differ in the last bit
@@ -105,15 +109,16 @@ def _axis(n: int, nb: int, blk: int, device):
     return (k - 1).clamp(0, nb - 1), k.clamp(0, nb - 1), ramp
 
 
-def blend_blocks(g3: torch.Tensor, m4: torch.Tensor, blockshape) -> torch.Tensor:
+def blend_blocks(g3: torch.Tensor, m4: torch.Tensor, blockshape, y0: int = 0) -> torch.Tensor:
     """Plain version: [B, H, W] uint8, LUT grid [B, nby, nbx, 256] float32
-    -> [B, H, W] uint8."""
+    -> [B, H, W] uint8. Row 0 of ``g3`` is image row ``y0`` of the grid's
+    image (a row band of it; 0 for the whole image)."""
     b, h, w = g3.shape
     nby, nbx = m4.shape[1:3]
     bh, bw = blockshape
-    _check_blend_geometry(h, w, nby, nbx, blockshape)
+    _check_blend_geometry(h, w, nby, nbx, blockshape, y0)
     dev = g3.device
-    iy0, iy1, t = _axis(h, nby, bh, dev)
+    iy0, iy1, t = _axis(h, nby, bh, dev, y0)
     ix0, ix1, s = _axis(w, nbx, bw, dev)
     flat = m4.reshape(-1)
     base = torch.arange(b, device=dev)[:, None, None] * (nby * nbx * 256) + g3.long()
@@ -128,11 +133,19 @@ def blend_blocks(g3: torch.Tensor, m4: torch.Tensor, blockshape) -> torch.Tensor
     return torch.clamp(out, 0.0, 255.0).to(torch.uint8)
 
 
-def blend_blocks_kernel(g3: torch.Tensor, m4: torch.Tensor, blockshape) -> torch.Tensor:
+def blend_tile_rows(h: int, bh: int, y0: int = 0) -> int:
+    """How many padded tile rows an H-row band from image row ``y0``
+    touches: the blend kernel's grid rows, a split each."""
+    return (y0 + h - 1 + bh // 2) // bh - (y0 + bh // 2) // bh + 1
+
+
+def blend_blocks_kernel(
+    g3: torch.Tensor, m4: torch.Tensor, blockshape, y0: int = 0
+) -> torch.Tensor:
     """Wrapper: the plain version for a CPU tensor, the CUDA kernel for a
     CUDA tensor (contiguous [B, H, W] uint8, [B, nby, nbx, 256] float32)."""
     if g3.device.type == "cpu":
-        return blend_blocks(g3, m4, blockshape)
+        return blend_blocks(g3, m4, blockshape, y0)
     require_cuda_tensor(g3, "g3", torch.uint8, 3)
     require_cuda_tensor(m4, "m4", torch.float32, 4)
     b, h, w = g3.shape
@@ -140,14 +153,14 @@ def blend_blocks_kernel(g3: torch.Tensor, m4: torch.Tensor, blockshape) -> torch
     if m4.shape[0] != b or m4.shape[3] != 256 or m4.device != g3.device:
         raise ValueError(f"m4 must be [{b}, nby, nbx, 256] on {g3.device}, got {tuple(m4.shape)}")
     bh, bw = blockshape
-    _check_blend_geometry(h, w, nby, nbx, blockshape)
+    _check_blend_geometry(h, w, nby, nbx, blockshape, y0)
     rpb = _rows_per_block(bh, bw, BLEND_BLOCK_PIXELS)
-    nsplit = -(-bh // rpb)
-    if b > MAX_GRID_YZ or (nby + 1) * nsplit > MAX_GRID_YZ:
-        raise ValueError(f"grid too large: images={b}, tile rows x splits={(nby + 1) * nsplit}")
+    rows = blend_tile_rows(h, bh, y0) * -(-bh // rpb)
+    if b > MAX_GRID_YZ or rows > MAX_GRID_YZ:
+        raise ValueError(f"grid too large: images={b}, tile rows x splits={rows}")
     out = torch.empty_like(g3)
     launch(
         "blend_blocks", "ocvk_blend_blocks", g3.device,
-        g3.data_ptr(), m4.data_ptr(), out.data_ptr(), b, h, w, nby, nbx, bh, bw, rpb,
+        g3.data_ptr(), m4.data_ptr(), out.data_ptr(), b, h, w, y0, nby, nbx, bh, bw, rpb,
     )
     return out

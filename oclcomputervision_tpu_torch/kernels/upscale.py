@@ -15,6 +15,13 @@ into FMAs).
 Geometry: ``[B, h, w]`` f32 -> ``[B, s*s, hq, wq]`` f32 planes, origin
 (hp, hp), edge-replicated outside the image. Unlike the TPU kernel there
 are no zero tail rows past hq (a tile artefact no consumer reads).
+
+A row band of a taller image (``row0``, ``h_img``: the band's first LR row
+and the image's LR height) is upscaled at the image's coordinates: its row
+stencil is the image's, rebased into the band, so its planes are rows of the
+whole image's planes (the row-sharded RAISR, ``ops/raisr._raisr_band``).
+Source rows outside the band clamp to its edge rows; they only reach plane
+rows within the stencil's reach of the band's edges.
 """
 
 from __future__ import annotations
@@ -37,13 +44,17 @@ def _axis_taps(n_in: int, s: int, org: int, n_out: int):
     ]
 
 
-def upscale_planes(x01: torch.Tensor, cfg, hq: int, wq: int, hp: int) -> torch.Tensor:
-    """Plain version: [B, h, w] f32 -> [B, s*s, hq, wq] f32 parity planes."""
+def upscale_planes(
+    x01: torch.Tensor, cfg, hq: int, wq: int, hp: int, row0: int = 0, h_img: int | None = None
+) -> torch.Tensor:
+    """Plain version: [B, h, w] f32 -> [B, s*s, hq, wq] f32 parity planes
+    (of a band from LR row ``row0`` of an ``h_img``-row image, if given)."""
     s = cfg.scale
     bsz, h, w = x01.shape
+    h_img = h if h_img is None else h_img
     x = x01.to(torch.float32)
     dev = x.device
-    row_taps = _axis_taps(h, s, hp, hq)
+    row_taps = _axis_taps(h_img, s, hp - row0, hq)
     col_taps = _axis_taps(w, s, hp, wq)
     rows = torch.arange(hq, device=dev)
     cols = torch.arange(wq, device=dev)
@@ -52,7 +63,7 @@ def upscale_planes(x01: torch.Tensor, cfg, hq: int, wq: int, hp: int) -> torch.T
         # vertical pass: per-row weights, source rows clamped to the image
         v = torch.zeros((bsz, hq, w), dtype=torch.float32, device=dev)
         for d, wv in row_taps[a]:
-            src = torch.clamp(rows + d, 0, h - 1)
+            src = torch.clamp(torch.clamp(rows + d, 0, h_img - 1) - row0, 0, h - 1)
             v = v + torch.from_numpy(wv).to(dev)[:, None] * x[:, src, :]
         for b in range(s):
             # horizontal pass: per-column weights
@@ -118,23 +129,33 @@ def upscale_form(s: int) -> str:
     return "upscale_planes" if s in COMPILED_SCALES else "upscale_planes_generic"
 
 
+def band_row_table(h: int, s: int, hp: int, hq: int, row0: int, h_img: int):
+    """The row table of an h-row band from LR row ``row0`` of an
+    ``h_img``-row image: the image's table at the band's plane rows, its
+    indices rebased into the band and clamped to it."""
+    idx, wgt = compact_axis_table(h_img, s, hp - row0, hq, TILE[0], SPAN[0])
+    return np.clip(idx - row0, 0, h - 1).astype(np.int32), wgt
+
+
 @functools.lru_cache(maxsize=16)
-def _device_tables(h: int, w: int, s: int, hp: int, hq: int, wq: int, device):
+def _device_tables(
+    h: int, w: int, s: int, hp: int, hq: int, wq: int, device, row0: int = 0, h_img=None
+):
     """Row and column compact tables (idx, wgt, idx, wgt) on the device."""
-    tabs = compact_axis_table(h, s, hp, hq, TILE[0], SPAN[0]) + compact_axis_table(
-        w, s, hp, wq, TILE[1], SPAN[1]
+    tabs = band_row_table(h, s, hp, hq, row0, h if h_img is None else h_img) + (
+        compact_axis_table(w, s, hp, wq, TILE[1], SPAN[1])
     )
     return tuple(torch.from_numpy(t).to(device) for t in tabs)
 
 
 def upscale_planes_kernel(
-    x01: torch.Tensor, cfg, hq: int, wq: int, hp: int
+    x01: torch.Tensor, cfg, hq: int, wq: int, hp: int, row0: int = 0, h_img: int | None = None
 ) -> torch.Tensor:
     """Wrapper: the plain version for a CPU tensor, the CUDA kernel for a
     CUDA tensor (contiguous [B, h, w] f32, wq a multiple of 4): the form
     compiled for the scale at scales 2-4, the generic form at any other."""
     if x01.device.type == "cpu":
-        return upscale_planes(x01, cfg, hq, wq, hp)
+        return upscale_planes(x01, cfg, hq, wq, hp, row0, h_img)
     require_cuda_tensor(x01, "x01", torch.float32, 3)
     s = cfg.scale
     nimg, h, w = x01.shape
@@ -143,7 +164,7 @@ def upscale_planes_kernel(
             f"the CUDA upscale kernel takes scales >= 1 and plane widths that are "
             f"multiples of 4, got scale {s}, wq {wq}, image {h} x {w}"
         )
-    tabs = _device_tables(h, w, s, hp, hq, wq, x01.device)
+    tabs = _device_tables(h, w, s, hp, hq, wq, x01.device, row0, h_img)
     out = torch.empty((nimg, s * s, hq, wq), dtype=torch.float32, device=x01.device)
     launch(
         upscale_form(s), "ocvk_upscale_planes", x01.device,

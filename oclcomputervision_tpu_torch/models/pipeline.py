@@ -4,9 +4,9 @@ Port of ``oclcomputervision_tpu/models/pipeline.py``: equalize ->
 super-resolution -> resize -> pyramid over an image or a batch, resident on
 one device end to end (the card unless the caller passes ``device="cpu"`` or
 a CPU tensor). Each stage is the port's op: the histeq and RAISR kernels on
-the card, their plain versions on the CPU. ``EnhancePipeline.sharded`` (the
-data-parallel variant over a mesh) is not ported: it waits for the port of
-``parallel/`` (ROADMAP queue A item 10).
+the card, their plain versions on the CPU. ``EnhancePipeline.sharded`` is the
+data-parallel variant over a ``parallel.make_mesh`` mesh: each rank runs the
+pipeline on its share of the batch.
 """
 
 from __future__ import annotations
@@ -79,3 +79,12 @@ class EnhancePipeline:
         if cfg.pyramid_depth > 0:
             return x, gaussian_pyramid(x, 2, cfg.pyramid_depth, batched=batched)
         return x
+
+    def sharded(self, mesh, axis: str = "data"):
+        """Data-parallel variant over a mesh (``parallel.make_mesh``): the
+        [B, H, W] batch is split over ``axis``, each rank runs the pipeline
+        on its share on the mesh's device, and every rank gets the whole
+        output."""
+        from oclcomputervision_tpu_torch.parallel import data_parallel
+
+        return data_parallel(self.__call__, mesh, axis)

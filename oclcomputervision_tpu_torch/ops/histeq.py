@@ -216,6 +216,30 @@ def apply_block_mappings(
     return out[0] if single else out
 
 
+def apply_block_mappings_band(
+    band, mappings, blockshape: Tuple[int, int], ty0: int, w: int, *, device=None
+) -> torch.Tensor:
+    """Blend a blend-tile-aligned row band against the global LUT grid
+    (``ops/histeq.apply_block_mappings_band`` of the JAX package).
+
+    ``band`` uint8 [nty_loc * bh, w] holds padded rows [ty0 * bh,
+    (ty0 + nty_loc) * bh) of the half-block-shifted image (padded row =
+    image row + bh // 2, out-of-image rows zero); ``mappings`` is the full
+    [nby, nbx, 256] grid. Returns the blended uint8 band (the same rows).
+    The band's row 0 is image row ty0 * bh - bh // 2, which is the blend
+    kernel's row origin: the kernel is the whole-image blend's.
+    """
+    g = _image(band, device)
+    bh, bw = blockshape
+    if g.ndim != 2 or g.shape[1] != w or g.shape[0] % bh:
+        raise ValueError(f"band {tuple(g.shape)} is not [k * {bh}, {w}]")
+    m = as_tensor(mappings, g.device).to(torch.float32)
+    if m.ndim != 3 or m.shape[-1] != 256:
+        raise ValueError(f"mappings must be [nby, nbx, 256], got {tuple(m.shape)}")
+    y0 = ty0 * bh - bh // 2
+    return klocaleq.blend_blocks_kernel(g[None], m[None].contiguous(), tuple(blockshape), y0)[0]
+
+
 def histeq_local_block(
     gray,
     alpha: float = 0.5,

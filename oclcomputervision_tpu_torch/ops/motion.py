@@ -105,6 +105,45 @@ def fast_halo_rows(search_size: int = 15, patch_size: int = 5) -> int:
     return sum(1 + st + pm for st in me_steps(search_size, patch_size))
 
 
+def _fast_residual_band(
+    f0_ext: torch.Tensor,
+    f1_ext: torch.Tensor,
+    r0: int,
+    h: int,
+    w: int,
+    search_size: int = 15,
+    patch_size: int = 5,
+    costfn: str = "sad",
+) -> torch.Tensor:
+    """The fast residual iteration on a row band (``ops/motion.py:643`` of
+    the JAX package): ``f0_ext`` / ``f1_ext`` uint8 [S, w] hold global rows
+    [r0, r0 + S) of frame 0 and the (seed-base-warped) frame 1 of an
+    [h, w] image; ``r0`` may be negative. Returns float32 [S, w, 2] (u = dx,
+    v = dy) whose rows at distance >= ``fast_halo_rows()`` from both band
+    edges equal the whole image's.
+
+    The band is cut to its rows inside the image, [max(0, -r0),
+    min(S, h - r0)), and the ordinary fast iteration (the round and median
+    kernels) runs on that: a band edge that is the image's edge then has the
+    whole image's edge semantics (zero warp and box-sum padding, a
+    replicated median) exactly, and what an interior edge gets wrong stays
+    within the halo. Rows outside the image are zero.
+    """
+    if f0_ext.dtype != torch.uint8 or f0_ext.ndim != 2 or f0_ext.shape[1] != w:
+        raise ValueError(f"bands must be uint8 [S, {w}], got {f0_ext.dtype} {tuple(f0_ext.shape)}")
+    if f1_ext.shape != f0_ext.shape:
+        raise ValueError(f"bands differ: {tuple(f0_ext.shape)} vs {tuple(f1_ext.shape)}")
+    n = f0_ext.shape[0]
+    lo, hi = max(0, -r0), min(n, h - r0)
+    out = torch.zeros((n, w, 2), dtype=torch.float32, device=f0_ext.device)
+    if hi > lo:
+        out[lo:hi] = kmotion.me_fast_kernel(
+            f0_ext[lo:hi][None].contiguous(), f1_ext[lo:hi][None].contiguous(),
+            search_size, patch_size, costfn,
+        )[0]
+    return out
+
+
 def exact_flow_bound(levels: int, search_size: int = 15, patch_size: int = 5) -> int:
     """Analytic bound on |flow| per axis for the exact pyramid in 'fixed'
     seed mode, px.

@@ -202,11 +202,15 @@ def _raisr_planes_batched(
     cfg: RaisrConfig,
     nchan: int,
     stages: Stages = KERNEL_STAGES,
+    row0: int = 0,
+    h_img: int | None = None,
 ) -> torch.Tensor:
     """uint8 [B, H, W(, C)] -> uint8 [B, sH, sW(, C)], plane-native.
 
     The batch rides every stage; colour channels stack into the batch for
-    one upscale and one apply launch and share the luma hash.
+    one upscale and one apply launch and share the luma hash. ``row0`` and
+    ``h_img``: the images are row bands from LR row ``row0`` of
+    ``h_img``-row images, upscaled at the whole images' coordinates.
     """
     s = cfg.scale
     bsz, h, w = imgs_u8.shape[:3]
@@ -215,10 +219,10 @@ def _raisr_planes_batched(
 
     x01 = true_div(imgs_u8.to(torch.float32), 255.0)
     if nchan == 1:
-        chan_planes = [stages.upscale(x01, cfg, hq, wq, hp)]
+        chan_planes = [stages.upscale(x01, cfg, hq, wq, hp, row0, h_img)]
     else:
         stacked = torch.cat([x01[..., c] for c in range(nchan)], dim=0)
-        up_all = stages.upscale(stacked, cfg, hq, wq, hp)
+        up_all = stages.upscale(stacked, cfg, hq, wq, hp, row0, h_img)
         chan_planes = [up_all[c * bsz : (c + 1) * bsz] for c in range(nchan)]
 
     # the CSC is linear and pointwise: apply it in plane space
@@ -263,6 +267,37 @@ def _raisr_planes_batched(
     # interleave in uint8 (4x less traffic than f32), then crop
     outs = [interleave_planes(o, s, s * h, s * w) for o in u8]
     return outs[0] if nchan == 1 else torch.stack(outs, dim=-1)
+
+
+def min_band_halo(cfg: RaisrConfig) -> int:
+    """The fewest LR rows a row band must carry beyond the rows it keeps
+    (``parallel/mesh.py:404`` of the JAX package): the HR receptive field
+    after the upscale (Sobel 1 + gauss_len // 2 blur + filter_len // 2
+    filter rows) in LR rows, plus one for the bilinear support."""
+    return -(-(cfg.gauss_len // 2 + 1 + cfg.filter_len // 2) // cfg.scale) + 1
+
+
+def _raisr_band(
+    lr_band: torch.Tensor,
+    row0: int,
+    h_img: int,
+    filters: torch.Tensor,
+    cfg: RaisrConfig,
+) -> torch.Tensor:
+    """RAISR of a row band: uint8 [h, W] holding LR rows [row0, row0 + h)
+    of an ``h_img``-row gray image -> uint8 [s*h, s*W].
+
+    The upscale samples the band at the image's align-corners coordinates
+    (``kernels.upscale.band_row_table``), so its planes are rows of the
+    image's planes; the hash and the apply then run on them as on any
+    image. HR rows farther than ``s * min_band_halo(cfg)`` from a band edge
+    that is not the image's equal the whole image's output. Band rows
+    outside the image (row0 < 0, row0 + h > h_img) are never read: the
+    image's stencil clamps to its own edge rows.
+    """
+    return _raisr_planes_batched(
+        lr_band[None].contiguous(), filters, cfg, 1, KERNEL_STAGES, row0, h_img
+    )[0]
 
 
 def _csc(img: torch.Tensor, mat: np.ndarray) -> torch.Tensor:

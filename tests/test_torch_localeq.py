@@ -100,6 +100,22 @@ def test_batched_equals_single(ue):
         assert torch.equal(got[i], ops.histeq_local_block(batch[i], clahe_clip=2.0, device="cpu"))
 
 
+@pytest.mark.parametrize("y0,rows", [(0, 200), (77, 300), (384, 256), (-128, 200)])
+def test_blend_band_equals_the_whole_images_rows(ue, y0, rows):
+    # a band from image row y0 (the row-sharded local histeq's blend) gives
+    # the whole image's rows; y0 = -bh/2 starts at the padded grid's top
+    m4 = torch.from_numpy(
+        np.random.default_rng(7).uniform(-20, 280, size=(1, 2, 4, 256)).astype(np.float32)
+    )
+    g3 = torch.from_numpy(ue)[None]
+    whole = klocaleq.blend_blocks(g3, m4, BS)
+    lo, hi = max(0, y0), min(ue.shape[0], y0 + rows)
+    band = torch.zeros((1, rows, ue.shape[1]), dtype=torch.uint8)
+    band[0, lo - y0 : hi - y0] = g3[0, lo:hi]
+    got = klocaleq.blend_blocks_kernel(band, m4, BS, y0)
+    assert torch.equal(got[0, lo - y0 : hi - y0], whole[0, lo:hi])
+
+
 def test_geometry_limits(ue):
     with pytest.raises(ValueError, match="not divisible"):
         ops.histeq_local_block(ue[:500], device="cpu")
@@ -108,6 +124,12 @@ def test_geometry_limits(ue):
     ops.apply_block_mappings(np.zeros((640, 1024), np.uint8), m, BS, device="cpu")
     with pytest.raises(ValueError, match="exceeds"):
         ops.apply_block_mappings(np.zeros((641, 1024), np.uint8), m, BS, device="cpu")
+    g3, m4 = torch.zeros((1, 128, 1024), dtype=torch.uint8), torch.from_numpy(m)[None]
+    klocaleq.blend_blocks(g3, m4, BS, 512)  # rows 512-639
+    with pytest.raises(ValueError, match="exceeds"):
+        klocaleq.blend_blocks(g3, m4, BS, 513)
+    with pytest.raises(ValueError, match="above the padded grid"):
+        klocaleq.blend_blocks(g3, m4, BS, -129)
 
 
 def test_wrappers_take_the_plain_path_for_cpu_tensors(ue):
