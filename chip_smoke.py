@@ -3,7 +3,8 @@
 inference (and RAISR at configs outside the compiled kernels' domain),
 global and local-block histogram equalization, pyramidal block-matching
 motion estimation, resize, RAISR 'shipped', the RAISR trainer,
-EnhancePipeline, the compat API and the sharded paths on torch.distributed.
+EnhancePipeline, the compat API, the image-domain RAISR ops, the sharded
+paths on torch.distributed and the example scripts.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -164,13 +165,21 @@ failure raises, and the script exits non-zero without the result line):
    HistEq's three methods, Utility's three, Raisr, the exact search with and
    without a seed, gaussian_pyramid, upscale_mv), each with the kernels it
    must launch;
+7f. the image-domain and plane RAISR ops of ``ops.raisr`` (the JAX
+   package's public names: ``upscale_planes`` and ``hash_planes`` through
+   their kernels, ``hash_components``, ``hash_image``, ``pixel_type_map``,
+   ``apply_filters``, ``apply_filters_fast``, ``ct_blend_weights``) on CUDA
+   tensors against the same calls on CPU tensors at 2 x 256^2 LR, x2: the
+   upscale within 1.2e-7, buckets agreeing on >= 0.9999, pixel types and
+   census weights equal, the applies within 2e-5;
 8. the sharded paths of ``oclcomputervision_tpu_torch.parallel`` on
    ``torch.distributed``, each at full size: global histeq on a 4320x7680
    frame, local histeq on 4096x8192 at 256^2 blocks (clahe_clip 0 and 2),
    fast and exact motion (15/5) on a 2160x3840 pair of frame10/11 tiles
    with noise, RAISR x2 (the shipped bank, halo 8) on a 2048^2 LR image,
-   ``raisr_train_step`` (RaisrConfig(), a (2, 2) dp x tp mesh) on phase
-   7c's corpus through the trainer's features, and
+   with fidelity='full' and 'shipped' (the bilinear upscale alone, which
+   must launch no kernel), ``raisr_train_step`` (RaisrConfig(), a (2, 2)
+   dp x tp mesh) on phase 7c's corpus through the trainer's features, and
    ``EnhancePipeline.sharded`` on phase 7d's stack; first on 4 gloo ranks
    sharing the card (``parallel/launch.py`` in a child process; NCCL
    refuses two ranks on one device), then on one NCCL rank with CUDA
@@ -180,7 +189,15 @@ failure raises, and the script exits non-zero without the result line):
    kernels; one line per path gives the wall ms on 4 ranks, on 1 rank and
    of the single-device op. The ranks' launches stand in the kernels line
    beside the main paths' (``sharded_launches``: per path, the 4 gloo
-   ranks' together and the NCCL rank's apart).
+   ranks' together and the NCCL rank's apart);
+9. each script of ``examples_torch/`` once on the card, as a child process
+   with its default arguments (histeq_demo also with --local, me_demo also
+   with --method fast, train_banks with --scales 2 and a temporary
+   --bank-dir): each must exit 0 and print its lines; me_demo's .flo files
+   must equal a direct ``estimate_motion_pyramid`` call on the card,
+   interpolation_bench's PSNR against the oracle exceed 50 dB, raisr_bench's
+   and train_banks' frame11 x2 PSNR exceed bicubic's. Their numbers (MP/s,
+   fps, EPE, PSNR) are printed and join the JSON line's ``e2e["examples"]``.
 
 Prints the per-kernel JSON line, then, as its last line,
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -195,7 +212,8 @@ import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
 UPSCALE_TOL = 1.2e-7  # <= 1 f32 ULP on [0, 1] (tests/test_pallas.py:305's bound)
 HASH_AGREEMENT = 0.9999  # bucket agreement (tests/test_pallas.py:335's contract)
@@ -446,8 +464,8 @@ def lenna_batch(rng, n: int, h: int, w: int | None = None):
 def train_corpus():
     """The PNG part of examples/train_banks.py's training corpus, through the
     port's own PNG reader: lenna and frame10 in RGB, and one pyr_down of each
-    one's luma. under_exposure.jpg is left out: the card's machine has no
-    JPEG decoder."""
+    one's luma. under_exposure.jpg is left out, so that the corpus (and the
+    JAX figure it is held to) needs no JPEG decoder."""
     from oclcomputervision_tpu_torch.oracle.pyramid import pyr_down
     from oclcomputervision_tpu_torch.utils import load_gray, load_image
 
@@ -2472,6 +2490,103 @@ def compat_phase(rng, device):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 7f: the image-domain and plane RAISR ops (ops/raisr.py's JAX names)
+# ---------------------------------------------------------------------------
+
+IMAGE_OPS_SHAPE = (2, 256, 256)  # LR images of lenna; x2 with the shipped bank
+
+
+def image_ops_phase(rng, device):
+    """Phase 7f: the eight image-domain and plane ops of ``ops.raisr``
+    (the JAX package's public names) on CUDA tensors against the same calls
+    on the CPU tensors, at 2 x 256^2 LR lenna images, x2 with the shipped
+    bank: ``upscale_planes`` (through the upscale kernel) within
+    UPSCALE_TOL, ``hash_planes`` (the hash kernel), ``hash_components`` and
+    ``hash_image`` at >= HASH_AGREEMENT bucket agreement,
+    ``pixel_type_map`` and ``ct_blend_weights`` equal, ``apply_filters`` and
+    ``apply_filters_fast`` within APPLY_TOL; the interleaved ops launch no
+    kernel."""
+    import torch
+
+    from oclcomputervision_tpu_torch.kernels import _build
+    from oclcomputervision_tpu_torch.models.raisr import RaisrModel
+    from oclcomputervision_tpu_torch.ops import raisr as R
+    from oclcomputervision_tpu_torch.utils import asset_path
+
+    model = RaisrModel.load(asset_path("raisr_filters_x2.npz"), device="cpu")
+    cfg, bank = model.cfg, model.filters
+    s = cfg.scale
+    n, h, w = IMAGE_OPS_SHAPE
+    x01 = R.true_div(torch.from_numpy(lenna_batch(rng, n, h, w)).float(), 255.0)
+    geo = R.plane_geometry(h, w, cfg)
+    pgeo = (geo.h2p, geo.w2p, geo.hq, geo.wq, geo.hp)
+
+    def both(fn, *args):
+        """(fn on the card's copies of args, fn on the CPU ones), on the CPU:
+        tensors, or tuples of them."""
+        card = fn(*(a.to(device) if isinstance(a, torch.Tensor) else a for a in args))
+        card = tuple(t.cpu() for t in card) if isinstance(card, tuple) else card.cpu()
+        return card, fn(*args)
+
+    def agreement(a, b) -> float:
+        return (a == b).double().mean().item()
+
+    def max_diff(a, b) -> float:
+        return (a - b).abs().max().item()
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    up_card, up_cpu = both(R.upscale_planes, x01, cfg, *pgeo)
+    buckets = both(R.hash_planes, up_cpu, cfg, geo.hp, geo.h2p, geo.w2p)
+    torch.cuda.synchronize()
+    launched = {k: _build.LAUNCHES[k] for k in ("upscale_planes", "raisr_hash")}
+    if min(launched.values()) < 1:
+        raise AssertionError(f"phase 7f: the plane ops launched {launched}")
+    res = {"upscale_planes_max_abs_err": max_diff(up_card, up_cpu),
+           "hash_planes_agreement": agreement(*buckets), "launches": launched}
+
+    interior = up_cpu[:, :, geo.hp : geo.hp + geo.h2p, geo.hp : geo.hp + geo.w2p]
+    up = R.interleave_planes(interior, s, s * h, s * w)  # the cheap upscale [n, sh, sw]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    ptype = (R.pixel_type_map(s * h, s * w, s, device=device).cpu(),
+             R.pixel_type_map(s * h, s * w, s, device="cpu"))
+    res["pixel_type_map_equal"] = torch.equal(*ptype) and ptype[1].dtype == torch.int32
+    ct = both(R.ct_blend_weights, up)
+    res["ct_blend_weights_equal"] = torch.equal(*ct)
+    hi, hc, ap, apf = [], [], [], []
+    for k in range(n):
+        comps_card, comps = both(R.hash_components, up[k], cfg)
+        hc += [agreement(a, b) for a, b in zip(comps_card, comps)]
+        hash_img = both(R.hash_image, up[k], cfg)
+        hi.append(agreement(*hash_img))
+        fidx = hash_img[1] * cfg.num_pixel_type + ptype[1]
+        ap.append(max_diff(*both(R.apply_filters, up[k], fidx, bank, cfg)))
+        apf.append(max_diff(*both(R.apply_filters_fast, up[k], *comps, bank, cfg)))
+    torch.cuda.synchronize()
+    _no_launches("phase 7f interleaved ops")
+    res.update(hash_components_agreement=min(hc), hash_image_agreement=min(hi),
+               apply_filters_max_abs_err=max(ap), apply_filters_fast_max_abs_err=max(apf))
+    print(f"phase 7f: ops.raisr image-domain and plane ops, card vs CPU, {n} x {h}x{w} LR x{s}: "
+          f"upscale_planes max |diff| {res['upscale_planes_max_abs_err']:.3e} (max {UPSCALE_TOL}), "
+          f"hash_planes {res['hash_planes_agreement']:.7f}, hash_components "
+          f"{res['hash_components_agreement']:.7f}, hash_image {res['hash_image_agreement']:.7f} "
+          f"bucket agreement (min {HASH_AGREEMENT}); pixel_type_map equal "
+          f"{res['pixel_type_map_equal']}, ct_blend_weights equal {res['ct_blend_weights_equal']}; "
+          f"apply_filters max |diff| {res['apply_filters_max_abs_err']:.3e}, apply_filters_fast "
+          f"{res['apply_filters_fast_max_abs_err']:.3e} (max {APPLY_TOL}); launches {launched}, "
+          f"none by the interleaved ops")
+    if not (res["upscale_planes_max_abs_err"] <= UPSCALE_TOL
+            and min(res["hash_planes_agreement"], res["hash_components_agreement"],
+                    res["hash_image_agreement"]) >= HASH_AGREEMENT
+            and res["pixel_type_map_equal"] and res["ct_blend_weights_equal"]
+            and max(res["apply_filters_max_abs_err"],
+                    res["apply_filters_fast_max_abs_err"]) <= APPLY_TOL):
+        raise AssertionError(f"phase 7f: {res}")
+    return res
+
+
 # phase 8: the row-sharded and data-parallel paths (oclcomputervision_tpu_torch/parallel)
 SHARD_RANKS = 4  # gloo ranks sharing the one card: NCCL takes one rank per card
 SHARD_GLOBAL = (4320, 7680)  # one 8K frame
@@ -2491,6 +2606,7 @@ SHARD_KERNELS = {
     "motion_fast": ("me_fast_round", "me_fast_median"),
     "motion_exact": ("me_exact",),
     "raisr": RAISR_KERNELS,
+    "raisr_shipped": (),  # the bilinear upscale alone: torch ops
     # the train step's global arrays, which every rank makes of the corpus;
     # the step itself is torch.matmul per bucket piece and torch.linalg.solve
     "train_features": ("upscale_planes", "raisr_hash"),
@@ -2566,15 +2682,23 @@ def shard_paths(x, train, model, mesh, mesh_dp_tp) -> dict:
                                                               *ME_GEOMETRY),
         "raisr": lambda: parallel.raisr_upsample_sharded(x["lr"], model.filters, model.cfg, mesh,
                                                          halo=SHARD_HALO),
+        "raisr_shipped": lambda: parallel.raisr_upsample_sharded(
+            x["lr"], model.filters, _shipped(model.cfg), mesh, halo=SHARD_HALO),
         "train": lambda: parallel.raisr_train_step(*train, nf, fl, mesh_dp_tp),
         "pipeline": lambda: pipe(x["pipe"]),
     }
 
 
+def _shipped(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, fidelity="shipped")
+
+
 def shard_singles(x, train, model, device) -> dict:
     """The single-device op of each sharded path, on the same inputs."""
     from oclcomputervision_tpu_torch import ops
-    from oclcomputervision_tpu_torch.models import EnhancePipeline
+    from oclcomputervision_tpu_torch.models import EnhancePipeline, RaisrModel
     from oclcomputervision_tpu_torch.models.raisr import accumulate_normal_eq, solve_filters
 
     nf, fl = model.cfg.num_filters, model.cfg.filter_len
@@ -2590,6 +2714,7 @@ def shard_singles(x, train, model, device) -> dict:
         "motion_exact": lambda: ops.estimate_motion_vector(x["f0"], x["f1"], *ME_GEOMETRY,
                                                            method="exact", **on),
         "raisr": lambda: model.upsample(x["lr"]),
+        "raisr_shipped": lambda: RaisrModel(_shipped(model.cfg), model.filters).upsample(x["lr"]),
         # raisr_train_step's defaults: chunk 256, ridge 0.03
         "train": lambda: solve_filters(*accumulate_normal_eq(*train, nf, 256), fl),
         "pipeline": lambda: pipe(x["pipe"], **on),
@@ -2712,6 +2837,9 @@ def sharded_phase(seed: int, card, device):
                            if rec["launches"][name][k] < 1]
                 if missing:
                     raise AssertionError(f"phase 8 {tag} {name}: ranks launched no {missing}")
+                if not need and any(any(rec["launches"][name].values()) for rec in recs):
+                    raise AssertionError(f"phase 8 {tag} {name}: a path of torch ops launched "
+                                         f"{[rec['launches'][name] for rec in recs]}")
                 runs.setdefault(name, {})[tag] = {
                     "launches": {k: sum(rec["launches"][name][k] for rec in recs)
                                  for k in KERNELS}}
@@ -2745,6 +2873,147 @@ def sharded_phase(seed: int, card, device):
         run["single_ms"] = single_ms[name]
     return runs
 
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the example scripts (examples_torch/) on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES_TIMEOUT_S = 300  # per script run
+ME_DEMO_DEFAULTS = dict(levels=3, search_size=15, patch_size=5, seed_mode="fixed", smooth=0,
+                        subpixel=0, refine="auto")  # examples_torch/me_demo.py's
+# (run name, script, its arguments; "{dir}" is the run's own temporary directory)
+EXAMPLE_RUNS = (
+    ("histeq_demo", "histeq_demo", ["--out", "{dir}/panel.png"]),
+    ("histeq_demo --local", "histeq_demo", ["--local", "--out", "{dir}/panel.png"]),
+    ("interpolation_bench", "interpolation_bench", []),
+    ("me_demo", "me_demo", ["--outdir", "{dir}"]),
+    ("me_demo --method fast", "me_demo", ["--method", "fast", "--outdir", "{dir}"]),
+    ("raisr_bench", "raisr_bench", []),
+    ("train_banks --scales 2", "train_banks", ["--scales", "2", "--bank-dir", "{dir}"]),
+    ("video_pipeline", "video_pipeline", []),
+)
+_NUM = r"([0-9.]+|inf)"
+
+
+def _found(pattern: str, out: str, run: str) -> list:
+    """Every match of ``pattern`` in ``out`` as tuples of floats; raises
+    where there is none."""
+    import re
+
+    hits = [tuple(float(v) for v in m) if isinstance(m, tuple) else (float(m),)
+            for m in re.findall(pattern, out)]
+    if not hits:
+        raise AssertionError(f"phase 9 {run}: no line matches {pattern!r} in:\n{out[-3000:]}")
+    return hits
+
+
+def _example_numbers(run: str, out: str, d: str, device) -> dict:
+    """The numbers a run printed, checked: the lines each script must print,
+    and what phase 9 holds them to."""
+    import numpy as np
+
+    from oclcomputervision_tpu_torch.ops import estimate_motion_pyramid
+    from oclcomputervision_tpu_torch.utils import load_gray, read_flo, read_png
+
+    script = run.split()[0]
+    if script == "histeq_demo":
+        mode = "local" if "--local" in run else "global"
+        (ms,), = _found(rf"ours \({mode}\) on .*: {_NUM} ms \(first call\)", out, run)
+        panel = read_png(os.path.join(d, "panel.png"))
+        if panel.ndim != 3 or panel.shape[2] != 3:
+            raise AssertionError(f"phase 9 {run}: panel {panel.shape}")
+        return {"first_call_ms": ms, "panel_shape": list(panel.shape)}
+    if script == "interpolation_bench":
+        rows = {}
+        for method in ("bilinear", "bicubic"):
+            (ms, mps, db), = _found(rf"{method}: cuda took {_NUM} ms \({_NUM} MP out/s\), PSNR "
+                                    rf"vs oracle: {_NUM}", out, run)
+            if not db > 50:  # tests/test_examples.py:75's bound
+                raise AssertionError(f"phase 9 {run}: {method} PSNR vs oracle {db}")
+            rows[method] = {"ms": ms, "mp_out_per_s": mps, "psnr_vs_oracle": db}
+        return rows
+    if script == "me_demo":
+        method = "fast" if "fast" in run else "exact"
+        epes = [e for (_lv, e) in _found(rf"layer ([0-9]+) [0-9]+x[0-9]+: EPE {_NUM}", out, run)]
+        g0, g1 = load_gray("frame10.png"), load_gray("frame11.png")
+        p = ME_DEMO_DEFAULTS
+        flows = estimate_motion_pyramid(g0, g1, p["levels"], p["search_size"], p["patch_size"],
+                                        p["seed_mode"], method, p["smooth"],
+                                        subpixel=p["subpixel"], refine=p["refine"], device=device)
+        for lv, f in enumerate(flows):
+            if not np.array_equal(read_flo(os.path.join(d, f"layer{lv}.flo")), f.cpu().numpy()):
+                raise AssertionError(f"phase 9 {run}: layer{lv}.flo differs from the direct call")
+        (ms,), = _found(rf"pyramid flow on .*: {_NUM} ms", out, run)
+        return {"first_call_ms": ms, "epe_by_level": epes, "flo_equal_to_direct_call": True}
+    if script == "raisr_bench":
+        rows = {}
+        for what in ("single image", "batch-16"):
+            (wall, wall_mps, dev_ms, dev_mps), = _found(
+                rf"RAISR 2x {what}: {_NUM} ms/img wall = {_NUM} MP out/s; device {_NUM} ms/img = "
+                rf"{_NUM} MP out/s", out, run)
+            rows[what] = {"wall_ms_per_img": wall, "wall_mp_out_per_s": wall_mps,
+                          "device_ms_per_img": dev_ms, "device_mp_out_per_s": dev_mps}
+        (bil, bic, ra), = _found(rf"PSNR vs HR: bilinear {_NUM}  bicubic {_NUM}  raisr {_NUM}",
+                                 out, run)
+        if not ra > bic:
+            raise AssertionError(f"phase 9 {run}: RAISR {ra} dB not above bicubic {bic}")
+        return {**rows, "psnr": {"bilinear": bil, "bicubic": bic, "raisr": ra}}
+    if script == "train_banks":
+        (ra, bic, _gain), = _found(rf"x2: ridge=.* frame11 PSNR raisr {_NUM} bicubic {_NUM} "
+                                   rf"\(\+?(-?[0-9.]+)\)", out, run)
+        if not ra > bic:
+            raise AssertionError(f"phase 9 {run}: frame11 x2 {ra} dB not above bicubic {bic}")
+        if not os.path.isfile(os.path.join(d, "raisr_filters_x2.npz")):
+            raise AssertionError(f"phase 9 {run}: no bank in --bank-dir")
+        return {"frame11_x2_psnr": ra, "bicubic_psnr": bic,
+                "val_psnr_by_ridge": [v for (_r, v) in _found(
+                    rf"x2 ridge={_NUM}: val PSNR {_NUM}", out, run)]}
+    if script == "video_pipeline":
+        rows = {}
+        for mode in ("sustained", "streaming"):
+            (ms, fps, mps), = _found(
+                rf"{mode} \(.*\): {_NUM} ms/frame = {_NUM} fps \({_NUM} MP/s\)", out, run)
+            rows[mode] = {"ms_per_frame": ms, "fps": fps, "mp_per_s": mps}
+        return rows
+    raise AssertionError(f"phase 9: no check for {run}")
+
+
+def examples_phase(card, device):
+    """Phase 9: each examples_torch script once on the card, as a child
+    process (EXAMPLE_RUNS): it must exit 0 and print its lines; me_demo's
+    .flo files must equal a direct ``estimate_motion_pyramid`` call with the
+    same arguments on the card, train_banks' frame11 x2 PSNR must beat
+    bicubic. Returns each run's numbers and its seconds, and the versions
+    of cv2 and PIL found (None: not installed)."""
+    import importlib
+    import tempfile
+
+    res = {"optional_modules": {}}
+    for name in ("cv2", "PIL"):  # the scripts take their cv2 / decoder paths where present
+        try:
+            mod = importlib.import_module(name)
+            res["optional_modules"][name] = getattr(mod, "__version__", "?")
+        except ImportError:
+            res["optional_modules"][name] = None
+    print(f"phase 9: optional modules in this Python: {res['optional_modules']} (None: not "
+          f"installed)")
+    for run, script, args in EXAMPLE_RUNS:
+        with tempfile.TemporaryDirectory() as d:
+            cmd = [sys.executable, os.path.join(ROOT, "examples_torch", f"{script}.py"),
+                   *(a.replace("{dir}", d) for a in args)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                                  timeout=EXAMPLES_TIMEOUT_S)
+            secs = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 9 {run}: exit {proc.returncode}\n"
+                                     f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+            res[run] = {**_example_numbers(run, proc.stdout, d, device), "seconds": secs}
+        print(f"[{card}] phase 9 {run}: {secs:.2f} s, exit 0; printed:")
+        for line in proc.stdout.strip().splitlines():
+            print(f"    {line}")
+    return res
 
 
 def main() -> int:
@@ -2865,6 +3134,9 @@ def main() -> int:
     e2e["enhance_pipeline"] = pipeline_phase(rng, card, device)
     e2e["compat"] = compat_phase(rng, device)
 
+    # phase 7f: ops.raisr's image-domain and plane ops, card against CPU
+    e2e["raisr_image_ops"] = image_ops_phase(rng, device)
+
     # phase 8: the sharded paths on torch.distributed, on 4 gloo ranks and 1 NCCL rank;
     # the ranks' launches stand beside the main paths' in the kernels line
     e2e["sharded"] = sharded_phase(args.seed, card, device)
@@ -2874,6 +3146,9 @@ def main() -> int:
                    for path, r in e2e["sharded"].items()
                    if r["gloo"]["launches"][k] or r["nccl"]["launches"][k]}
                for k in KERNELS}
+
+    # phase 9: the example scripts, each once on the card as a child process
+    e2e["examples"] = examples_phase(card, device)
 
     kernels = [
         {

@@ -15,8 +15,9 @@ Layers (counterparts of the JAX package's modules of the same names):
 - ``parallel``: the sharding strategies on ``torch.distributed`` (a mesh
   over the process group, row-sharded histeq, motion and RAISR, the dp + tp
   RAISR train step) and ``parallel.launch``, which starts the ranks.
-- ``utils``: configs, asset paths, PSNR, a stdlib PNG reader and CUDA-event
-  timing.
+- ``utils``: configs, asset paths, PSNR, MAE, EPE, a stdlib PNG reader and
+  writer, and timing (CUDA events, wall times that end in a synchronise,
+  torch.profiler).
 - ``oracle``: the numpy oracles (histeq, interpolation, RAISR).
 
 Entry points run on the card unless the caller passes ``device="cpu"``; a

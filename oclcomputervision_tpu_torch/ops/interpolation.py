@@ -50,11 +50,14 @@ def _resize_plane(
     out_hw: Tuple[int, int],
     method: str,
     mapping: str = "align_corners",
+    rows: Tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
-    """Resize float [B, H, W, C] -> [B, h_out, w_out, C]."""
+    """Resize float [B, H, W, C] -> [B, h_out, w_out, C]. ``rows``, if given,
+    replaces the row pass's table: (indices, weights), each [taps, h_out]
+    (a band's rows of a taller image's table, ``ops.raisr._raisr_shipped``)."""
     bsz, h_in, w_in, nch = img.shape
     h_out, w_out = out_hw
-    yidx, yw = _axis_table(h_out, h_in, method, mapping, img.device)
+    yidx, yw = rows if rows is not None else _axis_table(h_out, h_in, method, mapping, img.device)
     xidx, xw = _axis_table(w_out, w_in, method, mapping, img.device)
 
     out = torch.zeros((bsz, h_out, w_in, nch), dtype=img.dtype, device=img.device)

@@ -15,7 +15,11 @@ Plane convention (shared with the kernels and with the JAX package):
 the edge-replicated align-corners upscale at global coordinates.
 
 The table functions below are numpy copies of the JAX package's; tests
-hold them equal.
+hold them equal. The last section has the JAX module's public image-domain
+and plane functions (``hash_components``, ``hash_image``,
+``pixel_type_map``, ``apply_filters``, ``apply_filters_fast``,
+``ct_blend_weights``, ``upscale_planes``, ``hash_planes``), which no path
+of the port calls.
 """
 
 from __future__ import annotations
@@ -26,9 +30,10 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from oclcomputervision_tpu_torch._device import as_device
 from oclcomputervision_tpu_torch.kernels import raisr as kraisr
 from oclcomputervision_tpu_torch.kernels import upscale as kupscale
-from oclcomputervision_tpu_torch.ops.interpolation import _resize_plane
+from oclcomputervision_tpu_torch.ops.interpolation import _axis_table, _resize_plane
 from oclcomputervision_tpu_torch.oracle import raisr as oracle_raisr
 from oclcomputervision_tpu_torch.oracle.interpolation import axis_weights
 from oclcomputervision_tpu_torch.utils.config import RaisrConfig
@@ -309,13 +314,26 @@ def _csc(img: torch.Tensor, mat: np.ndarray) -> torch.Tensor:
     return img @ m
 
 
-def _raisr_shipped(imgs_u8: torch.Tensor, s: int, gray: bool) -> torch.Tensor:
+def _raisr_shipped(
+    imgs_u8: torch.Tensor, s: int, gray: bool, row0: int = 0, h_img: int | None = None
+) -> torch.Tensor:
     """fidelity='shipped': uint8 [B, H, W, C] -> uint8 [B, sH, sW, C], the
     cheap align-corners bilinear upscale and, for colour, the YUV round trip
-    (the reference kernel's early return, raisr.cl:219-230)."""
+    (the reference kernel's early return, raisr.cl:219-230).
+
+    ``row0`` and ``h_img``: the images are row bands from LR row ``row0`` of
+    ``h_img``-row images (the row-sharded RAISR). HR row q of the band is the
+    image's HR row s * row0 + q, clamped to the image, with the image's taps
+    rebased into the band and clamped to it: the rows whose taps lie in the
+    band equal the whole image's output bit for bit."""
     x01 = true_div(imgs_u8.to(torch.float32), 255.0)
     h, w = x01.shape[1:3]
-    out = _resize_plane(x01, (h * s, w * s), "bilinear")
+    rows = None
+    if h_img is not None:
+        yidx, yw = _axis_table(h_img * s, h_img, "bilinear", "align_corners", x01.device)
+        q = torch.clamp(s * row0 + torch.arange(h * s, device=x01.device), 0, h_img * s - 1)
+        rows = (torch.clamp(yidx[:, q] - row0, 0, h - 1), yw[:, q])
+    out = _resize_plane(x01, (h * s, w * s), "bilinear", rows=rows)
     if not gray:
         out = _csc(_csc(out, oracle_raisr.RGB2YUV.T), oracle_raisr.YUV2RGB.T)
     return torch.clamp(torch.round(out * 255.0), 0, 255).to(torch.uint8)
@@ -349,3 +367,184 @@ def raisr_upsample(
     nchan = 1 if gray else img.shape[-1]
     out = _raisr_planes_batched(batch.contiguous(), filters, cfg, nchan)
     return out[0] if single else out
+
+
+# ---------------------------------------------------------------------------
+# Image-domain and plane ops (the JAX package's ``ops/raisr.py`` public
+# functions). No path of the port calls them; JAX computes them with XLA.
+# Interleaved ones are f32 torch ops on the input's device; the two plane
+# ops go through the kernel wrappers (the CUDA kernel for a CUDA tensor, its
+# plain version for a CPU one).
+# ---------------------------------------------------------------------------
+
+
+def _edge_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Edge-replicate the last two dims of [..., H, W] by ``pad``."""
+    h, w = x.shape[-2:]
+    xp = torch.nn.functional.pad(x.reshape(-1, 1, h, w), (pad,) * 4, mode="replicate")
+    return xp.reshape(*x.shape[:-2], h + 2 * pad, w + 2 * pad)
+
+
+def _correlate2d_valid(img: torch.Tensor, kern: np.ndarray) -> torch.Tensor:
+    """'valid' correlation of [..., H, W] with a small constant kernel, as
+    the JAX package's k*k shifted multiply-adds in the same order."""
+    kh, kw = kern.shape
+    h = img.shape[-2] - kh + 1
+    w = img.shape[-1] - kw + 1
+    out = torch.zeros(img.shape[:-2] + (h, w), dtype=img.dtype, device=img.device)
+    for i in range(kh):
+        for j in range(kw):
+            if kern[i, j] != 0.0:
+                out = out + float(kern[i, j]) * img[..., i : i + h, j : j + w]
+    return out
+
+
+def _gauss_blur_valid(img: torch.Tensor, k1d: np.ndarray) -> torch.Tensor:
+    """Separable 'valid' blur of [..., H, W] with a 1D kernel, rows first."""
+    k = k1d.shape[0]
+    h = img.shape[-2] - k + 1
+    out = torch.zeros(img.shape[:-2] + (h, img.shape[-1]), dtype=img.dtype, device=img.device)
+    for i in range(k):
+        out = out + float(np.float32(k1d[i])) * img[..., i : i + h, :]
+    w = img.shape[-1] - k + 1
+    out2 = torch.zeros(img.shape[:-2] + (h, w), dtype=img.dtype, device=img.device)
+    for j in range(k):
+        out2 = out2 + float(np.float32(k1d[j])) * out[..., j : j + w]
+    return out2
+
+
+def hash_components(up_y: torch.Tensor, cfg: RaisrConfig):
+    """Per-pixel (angle_idx, strength_idx, coherence_idx), each [H, W] int32,
+    of the cheap-upscaled luma [H, W]: Sobel gradients of the edge-padded
+    image, the separable gauss_len^2 structure-tensor blur, eigen analysis."""
+    pad = cfg.gauss_len // 2 + 1
+    y = _edge_pad(up_y.to(torch.float32), pad)
+    gx = _correlate2d_valid(y, oracle_raisr.SOBEL_X)
+    gy = _correlate2d_valid(y, oracle_raisr.SOBEL_Y)
+    k1 = _blur_k1(cfg)
+    a = _gauss_blur_valid(gx * gx, k1)
+    b = _gauss_blur_valid(gx * gy, k1)
+    d = _gauss_blur_valid(gy * gy, k1)
+    return kraisr._eigen_bucket(a, b, d, cfg)
+
+
+def hash_image(up_y: torch.Tensor, cfg: RaisrConfig) -> torch.Tensor:
+    """Per-pixel (angle, strength, coherence) bucket [H, W] int32."""
+    ai, si, ci = hash_components(up_y, cfg)
+    return ((ai * cfg.num_strength + si) * cfg.num_coherence + ci).to(torch.int32)
+
+
+def pixel_type_map(h: int, w: int, scale: int, *, device=None) -> torch.Tensor:
+    """[h, w] int32 pixel type (y % scale) * scale + (x % scale), on
+    ``device`` (None: the card)."""
+    dev = as_device(device)
+    yy = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+    xx = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    return (yy % scale) * scale + (xx % scale)
+
+
+def apply_filters(
+    up: torch.Tensor, fidx: torch.Tensor, filters: torch.Tensor, cfg: RaisrConfig
+) -> torch.Tensor:
+    """out[p] = sum_q filters[fidx[p], q] * up[p + q - m] of [H, W] or
+    [H, W, C] f32 ``up`` (edge-padded; every channel takes the pixel's
+    filter), ``fidx`` [H, W] the filter index, ``filters`` [num_filters,
+    fl, fl]: the taps added in row-major order, in f32."""
+    fl = cfg.filter_len
+    m = fl // 2
+    squeeze = up.ndim == 2
+    x = (up[..., None] if squeeze else up).to(torch.float32)
+    h, w = x.shape[:2]
+    xp = _edge_pad(x.permute(2, 0, 1), m).permute(1, 2, 0)
+    bank = filters.to(device=x.device, dtype=torch.float32).reshape(-1, fl * fl)
+    sel = bank[fidx.reshape(-1).to(torch.int64)].reshape(h, w, fl * fl)
+    out = torch.zeros_like(x)
+    for i in range(fl):
+        for j in range(fl):
+            out = out + sel[:, :, i * fl + j, None] * xp[i : i + h, j : j + w]
+    return out[..., 0] if squeeze else out
+
+
+def apply_filters_fast(
+    up: torch.Tensor,
+    angle_idx: torch.Tensor,
+    strength_idx: torch.Tensor,
+    coherence_idx: torch.Tensor,
+    filters: torch.Tensor,
+    cfg: RaisrConfig,
+) -> torch.Tensor:
+    """``apply_filters`` split over the s x s pixel-type phases, in f32 (the
+    JAX package's XLA twin): phase (py, px) takes the stride-s im2col of the
+    edge-padded image from (py, px) and, per pixel, the row of its
+    (angle, strength, coherence) bucket in the phase's slice of the bank.
+    [H, W] or [H, W, C] with H and W multiples of the scale."""
+    s = cfg.scale
+    fl = cfg.filter_len
+    m = fl // 2
+    nb = cfg.num_angle * cfg.num_strength * cfg.num_coherence
+    squeeze = up.ndim == 2
+    x = (up[..., None] if squeeze else up).to(torch.float32)
+    h, w, c = x.shape
+    if h % s or w % s:
+        raise ValueError(f"apply_filters_fast takes H and W multiples of the scale {s}, "
+                         f"got {h} x {w}")
+    h2, w2 = h // s, w // s
+    xp = _edge_pad(x.permute(2, 0, 1), m)  # [C, H + 2m, W + 2m]
+    bank = filters.to(device=x.device, dtype=torch.float32).reshape(
+        nb, cfg.num_pixel_type, fl * fl)
+    bucket = (angle_idx.to(torch.int64) * cfg.num_strength + strength_idx) * cfg.num_coherence
+    bucket = bucket + coherence_idx
+    out = torch.empty((c, h, w), dtype=torch.float32, device=x.device)
+    for py in range(s):
+        for px in range(s):
+            # [C, fl*fl, h2*w2]: the patch of each phase pixel, taps row-major
+            win = xp[:, None, py : py + (h2 - 1) * s + fl, px : px + (w2 - 1) * s + fl]
+            patches = torch.nn.functional.unfold(win, (fl, fl), stride=s)
+            rows = bank[bucket[py::s, px::s].reshape(-1), py * s + px]  # [h2*w2, fl*fl]
+            out[:, py::s, px::s] = (patches * rows.T[None]).sum(1).reshape(c, h2, w2)
+    out = out.permute(1, 2, 0)
+    return out[..., 0] if squeeze else out
+
+
+def upscale_planes(
+    x01: torch.Tensor, cfg: RaisrConfig, h2p: int, w2p: int, hq: int, wq: int, hp: int
+) -> torch.Tensor:
+    """Cheap-upscale a [..., h, w] float image straight into parity planes
+    [..., s*s, hq, wq] f32 with origin (hp, hp), edge-replicated outside the
+    image (the JAX signature; ``h2p`` and ``w2p`` are not read there either).
+    Leading dims are a batch; through ``kernels.upscale.upscale_planes_kernel``,
+    whose CUDA form takes plane widths that are multiples of 4: the planes
+    are computed that wide and cropped (a column's value does not depend on
+    the width)."""
+    s = cfg.scale
+    h, w = x01.shape[-2:]
+    lead = x01.shape[:-2]
+    x = x01.to(torch.float32).reshape(-1, h, w).contiguous()
+    wq4 = -(-wq // 4) * 4
+    planes = kupscale.upscale_planes_kernel(x, cfg, hq, wq4, hp)[..., :wq]
+    return planes.reshape(*lead, s * s, hq, wq)
+
+
+def hash_planes(
+    y_planes: torch.Tensor, cfg: RaisrConfig, hp: int, h2p: int, w2p: int
+) -> torch.Tensor:
+    """Per-pixel hash bucket in plane space: luma planes [..., s*s, rows,
+    cols] (origin (hp, hp), rows >= h2p + 2 hp, cols >= w2p + 2 hp) ->
+    bucket planes [..., s*s, h2p, w2p] int32; leading dims are a batch.
+    Through ``kernels.raisr.hash_planes_kernel``."""
+    lead = y_planes.shape[:-3]
+    ss, rows, cols = y_planes.shape[-3:]
+    y = y_planes.to(torch.float32).reshape(-1, ss, rows, cols).contiguous()
+    return kraisr.hash_planes_kernel(y, cfg, hp, h2p, w2p).reshape(*lead, ss, h2p, w2p)
+
+
+def ct_blend_weights(up_y: torch.Tensor) -> torch.Tensor:
+    """Census-transform structure weights [..., H, W] in [0, 1] of the
+    cheap-upscaled luma (RAISR paper §V): w = clip((8 - LCC) / 6, 0, 1) from
+    the 3x3 census ring, edge-replicated borders."""
+    h, w = up_y.shape[-2:]
+    xp = _edge_pad(up_y, 1)
+    bits = [xp[..., 1 + dr : 1 + dr + h, 1 + dc : 1 + dc + w] >= up_y
+            for dr, dc in oracle_raisr.CT_RING]
+    lcc = sum((bits[k] != bits[(k + 1) % 8]).to(torch.float32) for k in range(8))
+    return torch.clamp(true_div(8.0 - lcc, 6.0), 0.0, 1.0)

@@ -365,16 +365,20 @@ def raisr_upsample_sharded(
     axis: str = "data",
     halo: int = 8,
 ):
-    """Row-sharded RAISR inference (fidelity='full') of a uint8 [H, W] image.
+    """Row-sharded RAISR inference of a uint8 [H, W] image.
 
     Each rank takes its LR rows and ``halo`` rows from each neighbour
     (zeros beyond the image, which are never read: the image's stencil
     clamps to its own edge rows), upsamples the band at the image's
-    coordinates (``ops.raisr._raisr_band``: the upscale's row stencil
-    rebased into the band, then the hash and apply kernels) and keeps its
-    s * rows HR rows. The halo must cover the HR receptive field
-    (``ops.raisr.min_band_halo``: 6 LR rows at the shipped x2 config).
-    Equal to ``ops.raisr.raisr_upsample`` bit for bit."""
+    coordinates and keeps its s * rows HR rows. fidelity='full' runs
+    ``ops.raisr._raisr_band`` (the upscale's row stencil rebased into the
+    band, then the hash and apply kernels); fidelity='shipped' the cheap
+    bilinear upscale alone, its row taps the image's rebased into the band
+    (``ops.raisr._raisr_shipped``; no kernel, ``filters`` unread). The halo
+    must cover the HR receptive field of 'full' in both
+    (``ops.raisr.min_band_halo``: 6 LR rows at the shipped x2 config), as
+    the JAX function asserts. Equal to ``ops.raisr.raisr_upsample`` bit for
+    bit."""
     n = mesh.shape[axis]
     h, _ = _rows_of(lr, "raisr_upsample_sharded")
     if h % n:
@@ -385,15 +389,19 @@ def raisr_upsample_sharded(
     need = ops_raisr.min_band_halo(cfg)
     if halo < need:
         raise ValueError(f"halo {halo} is below the {need} LR rows the upscale and filters reach")
-    if cfg.fidelity != "full":
-        raise ValueError(f"raisr_upsample_sharded runs fidelity='full', got {cfg.fidelity!r}")
+    if cfg.fidelity not in ("full", "shipped"):
+        raise ValueError(f"unknown fidelity {cfg.fidelity!r}")
     x = _local(lr, mesh, axis)
     if x.dtype != torch.uint8:
         raise TypeError(f"expected uint8 pixels, got {x.dtype}")
     above, below = _collective("halo", x, mesh, axis, halo)
     i = mesh.coords[axis]
     band = torch.cat([above, x, below])
-    bank = as_tensor(filters, mesh.device).to(torch.float32)
-    hr = ops_raisr._raisr_band(band, i * h_loc - halo, h, bank, cfg)
     s = cfg.scale
+    if cfg.fidelity == "shipped":
+        hr = ops_raisr._raisr_shipped(band[None, ..., None], s, True, i * h_loc - halo, h)
+        hr = hr[0, ..., 0]
+    else:
+        bank = as_tensor(filters, mesh.device).to(torch.float32)
+        hr = ops_raisr._raisr_band(band, i * h_loc - halo, h, bank, cfg)
     return _collective("gather", hr[s * halo : s * (halo + h_loc)].contiguous(), mesh, axis)

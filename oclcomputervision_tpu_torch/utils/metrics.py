@@ -1,4 +1,5 @@
-"""Quality metrics (the JAX package's ``utils.metrics.psnr`` and ``epe``)."""
+"""Quality metrics (the JAX package's ``utils.metrics``: ``psnr``, ``mae``,
+``max_abs_err`` and ``epe``)."""
 
 from __future__ import annotations
 
@@ -13,6 +14,19 @@ def psnr(a, b, data_range: float = 255.0) -> float:
     if mse == 0:
         return float("inf")
     return float(10.0 * np.log10((data_range**2) / mse))
+
+
+def mae(a, b) -> float:
+    """Mean absolute error."""
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    return float(np.mean(np.abs(a - b)))
+
+
+def max_abs_err(a, b) -> float:
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    return float(np.max(np.abs(a - b)))
 
 
 def epe(flow, flow_gt, max_flow: float = 1e9) -> float:

@@ -1,7 +1,9 @@
-"""A stdlib-only PNG reader (zlib + struct) for the repository's assets.
+"""A stdlib-only PNG reader and writer (zlib + struct) for the repository's
+assets and the examples' panels.
 
-Reads 8-bit, non-interlaced, colour-type-2 (RGB) PNGs, which is what every
-PNG in ``assets/`` is, so the port needs neither cv2 nor PIL.
+Reads and writes 8-bit, non-interlaced gray (colour type 0) and RGB (colour
+type 2) PNGs: every PNG in ``assets/`` is RGB, so the port needs neither cv2
+nor PIL.
 """
 
 from __future__ import annotations
@@ -15,23 +17,25 @@ import numpy as np
 from oclcomputervision_tpu_torch.utils.assets import asset_path
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3}  # colour type -> samples per pixel
 
 
-def _unfilter(raw: bytes, h: int, w: int) -> np.ndarray:
-    """Undo the per-row PNG filters of RGB8 scanlines -> [h, w, 3] uint8.
+def _unfilter(raw: bytes, h: int, w: int, nch: int) -> np.ndarray:
+    """Undo the per-row PNG filters of 8-bit scanlines of ``nch`` samples a
+    pixel -> [h, w, nch] uint8.
 
     Paeth and Average predict from the left, upper and upper-left pixels,
     so pixel (y, x) depends only on pixels of smaller y + x: one vectorised
     step per anti-diagonal reconstructs the image.
     """
-    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + 3 * w)
+    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + nch * w)
     ftype = rows[:, 0].astype(np.int32)
     if ftype.max() > 4:
         raise ValueError(f"unknown PNG filter type {ftype.max()}")
-    data = rows[:, 1:].reshape(h, w, 3).astype(np.int32)
+    data = rows[:, 1:].reshape(h, w, nch).astype(np.int32)
     # one zero row above and one zero column to the left: the PNG's
     # out-of-image neighbours
-    rec = np.zeros((h + 1, w + 1, 3), np.int32)
+    rec = np.zeros((h + 1, w + 1, nch), np.int32)
     for t in range(h + w - 1):
         y = np.arange(max(0, t - w + 1), min(h, t + 1))
         x = t - y
@@ -52,7 +56,8 @@ def _unfilter(raw: bytes, h: int, w: int) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """Decode an 8-bit non-interlaced RGB PNG -> [H, W, 3] uint8."""
+    """Decode an 8-bit non-interlaced PNG: RGB -> [H, W, 3] uint8, gray ->
+    [H, W] uint8."""
     with open(path, "rb") as f:
         buf = f.read()
     if buf[:8] != _SIGNATURE:
@@ -74,15 +79,39 @@ def read_png(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, color, _comp, _filt, interlace = header
-    if (depth, color, interlace) != (8, 2, 0):
+    if depth != 8 or color not in _CHANNELS or interlace != 0:
         raise ValueError(
-            f"{path}: only 8-bit non-interlaced RGB is supported, got depth "
+            f"{path}: only 8-bit non-interlaced gray or RGB is supported, got depth "
             f"{depth}, colour type {color}, interlace {interlace}"
         )
+    nch = _CHANNELS[color]
     raw = zlib.decompress(b"".join(idat))
-    if len(raw) != h * (1 + 3 * w):
+    if len(raw) != h * (1 + nch * w):
         raise ValueError(f"{path}: {len(raw)} bytes of scanlines for {w}x{h}")
-    return _unfilter(raw, h, w)
+    img = _unfilter(raw, h, w, nch)
+    return img[..., 0] if nch == 1 else img
+
+
+def write_png(path: str, img) -> None:
+    """Encode uint8 [H, W] (gray) or [H, W, 3] (RGB) as an 8-bit
+    non-interlaced PNG: every row with filter 0, zlib-compressed."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"write_png takes uint8 [H, W] or [H, W, 3], got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    color = 0 if img.ndim == 2 else 2
+    rows = np.ascontiguousarray(img).reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+
+    def chunk(ctype: bytes, body: bytes) -> bytes:
+        crc = zlib.crc32(ctype + body) & 0xFFFFFFFF
+        return struct.pack(">I", len(body)) + ctype + body + struct.pack(">I", crc)
+
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE)
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(chunk(b"IEND", b""))
 
 
 def gray(rgb: np.ndarray) -> np.ndarray:

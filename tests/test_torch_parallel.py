@@ -34,6 +34,7 @@ from oclcomputervision_tpu.models.pipeline import EnhancePipeline as JaxEnhanceP
 from oclcomputervision_tpu.models.raisr import RaisrModel as JaxRaisrModel
 from oclcomputervision_tpu.ops import histeq as jax_histeq
 from oclcomputervision_tpu.ops import motion as jax_motion
+from oclcomputervision_tpu.ops import raisr as jax_raisr
 from oclcomputervision_tpu.utils import psnr
 from oclcomputervision_tpu.utils.config import RaisrConfig as JaxRaisrConfig
 from oclcomputervision_tpu_torch import entry, ops, parallel
@@ -43,6 +44,7 @@ from oclcomputervision_tpu_torch.models.raisr import accumulate_normal_eq, solve
 from oclcomputervision_tpu_torch.ops import histeq as port_histeq
 from oclcomputervision_tpu_torch.ops import motion as port_motion
 from oclcomputervision_tpu_torch.ops.raisr import plane_geometry, raisr_upsample
+from oclcomputervision_tpu_torch.oracle.interpolation import axis_weights
 from oclcomputervision_tpu_torch.parallel import launch
 from oclcomputervision_tpu_torch.utils import asset_path
 from oclcomputervision_tpu_torch.utils.config import RaisrConfig
@@ -265,6 +267,33 @@ def test_raisr_upsample_sharded(npz, mesh4, banks):
     assert psnr(npz["raisr"], want) > RAISR_PSNR
 
 
+def test_raisr_upsample_sharded_shipped(npz, mesh4, banks):
+    # fidelity='shipped': each band's bilinear upscale at the image's row
+    # coordinates, equal to the single-device op bit for bit, and within one
+    # level of the JAX package's single-device op
+    model, jmodel = banks
+    lr = npz["lr"]
+    got = npz["raisr_shipped"]
+    _same(npz, "raisr_shipped", raisr_upsample(torch.from_numpy(lr), None,
+                                               ranks_body.SHIPPED).numpy())
+    jcfg = JaxRaisrConfig(fidelity="shipped")
+    _within_one(got, np.asarray(jax_raisr.raisr_upsample(lr, None, jcfg)), 1.0)
+    # the JAX sharded function: within one level on every HR row whose
+    # bilinear taps lie in its rank's rows. Its halo exchange hands a rank
+    # its neighbours' far rows (the first rows of the rank below, the last of
+    # the rank above), which only rows of 8 LR rows a rank (its own test's)
+    # cannot show; the rows that read the halo are left out
+    want = np.asarray(jax.jit(lambda x, f: jax_parallel.raisr_upsample_sharded(
+        x, f, jcfg, mesh4))(lr, jmodel.filters))
+    assert want.shape == got.shape
+    h, s = lr.shape[0], jcfg.scale
+    idx, wgt = axis_weights(h * s, h, "bilinear", dtype=np.float32)
+    rank = np.arange(h * s) // (s * h // ranks_body.RANKS)
+    inside = np.all((idx // (h // ranks_body.RANKS) == rank[:, None]) | (wgt == 0), axis=1)
+    assert inside.mean() > 0.9
+    _within_one(got[inside], want[inside], 1.0)
+
+
 def test_raisr_train_step(npz):
     p, t, f = (npz[k] for k in ("patches", "targets", "fidx"))
     g, r, c = accumulate_normal_eq(torch.from_numpy(p), torch.from_numpy(t),
@@ -342,9 +371,13 @@ def test_sharded_errors_match_jax(rng):
     with pytest.raises(AssertionError):
         jax_parallel.raisr_upsample_sharded(lr, jnp.zeros((864, 11, 11)),
                                             JaxRaisrConfig(fidelity="full"), mesh8, halo=3)
-    with pytest.raises(ValueError, match="halo 3 is below the 6 LR rows"):
-        parallel.raisr_upsample_sharded(lr, np.zeros((864, 11, 11), np.float32),
-                                        RaisrConfig(), fake8, halo=3)
+    for fidelity in ("full", "shipped"):
+        with pytest.raises(ValueError, match="halo 3 is below the 6 LR rows"):
+            parallel.raisr_upsample_sharded(lr, np.zeros((864, 11, 11), np.float32),
+                                            RaisrConfig(fidelity=fidelity), fake8, halo=3)
+    with pytest.raises(AssertionError):
+        jax_parallel.raisr_upsample_sharded(lr, jnp.zeros((864, 11, 11)),
+                                            JaxRaisrConfig(fidelity="shipped"), mesh8, halo=3)
 
 
 def test_make_mesh_needs_a_process_group():

@@ -31,10 +31,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "oclcomputervision_tpu_torch")
 
 
+EXAMPLES = os.path.join(REPO, "examples_torch")
+
+
 def _port_sources():
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PORT):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    paths += [os.path.join(EXAMPLES, f) for f in os.listdir(EXAMPLES) if f.endswith(".py")]
     return sorted(paths)
 
 
@@ -48,6 +52,9 @@ def test_import_scan_covers_the_ported_modules():
     for rel in ("ops/interpolation.py", "oracle/interpolation.py", "models/raisr.py",
                 "models/pipeline.py", "compat/__init__.py", "ops/raisr.py"):
         assert rel in scanned, rel
+    examples = {os.path.basename(p) for p in _port_sources() if os.path.dirname(p) == EXAMPLES}
+    jax_examples = {f for f in os.listdir(os.path.join(REPO, "examples")) if f.endswith(".py")}
+    assert len(jax_examples) == 6 and jax_examples <= examples, sorted(jax_examples - examples)
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
@@ -78,6 +85,86 @@ def test_config_copies_equal_jax(name):
     if name == "RaisrConfig":
         for s in (2, 3, 4):
             assert port_cls(scale=s).num_filters == jax_cls(scale=s).num_filters
+
+
+@pytest.mark.parametrize("module", ["ops.raisr", "utils.metrics", "utils.profiling"])
+def test_public_functions_of_jax_modules_are_ported(module):
+    import importlib
+    import inspect
+
+    jax_mod = importlib.import_module(f"oclcomputervision_tpu.{module}")
+    port_mod = importlib.import_module(f"oclcomputervision_tpu_torch.{module}")
+    own = {n for n, v in vars(jax_mod).items()
+           if not n.startswith("_") and (inspect.isfunction(v) or inspect.isclass(v))
+           and v.__module__ == jax_mod.__name__}
+    # profile_device's counterpart is device_profile (torch.profiler)
+    renamed = {"profile_device": "device_profile"}
+    missing = sorted(n for n in own if not hasattr(port_mod, renamed.get(n, n)))
+    assert own and not missing, missing
+
+
+def test_mae_and_max_abs_err_equal_jax():
+    rng = np.random.default_rng(3)
+    a, b = rng.integers(0, 256, (2, 40, 50), dtype=np.uint8)
+    x, y = rng.standard_normal((2, 7, 9)).astype(np.float32)
+    for u, v in ((a, b), (x, y), (a, a)):
+        assert metrics.mae(u, v) == jax_metrics.mae(u, v)
+        assert metrics.max_abs_err(u, v) == jax_metrics.max_abs_err(u, v)
+    assert metrics.mae(a, a) == 0.0 and metrics.max_abs_err(a, b) > 0
+
+
+def test_utils_exports_mae_and_timer_as_jax_does():
+    from oclcomputervision_tpu import utils as jax_utils
+    from oclcomputervision_tpu_torch import utils as port_utils
+
+    assert set(jax_utils.__all__) <= set(port_utils.__all__)
+
+
+def test_write_png_round_trips(tmp_path):
+    import cv2
+
+    from oclcomputervision_tpu_torch.utils import read_png, write_png
+
+    rng = np.random.default_rng(4)
+    rgb = rng.integers(0, 256, (37, 53, 3), dtype=np.uint8)
+    for img in (rgb, rgb[..., 1]):
+        path = str(tmp_path / f"x{img.ndim}.png")
+        write_png(path, img)
+        got = read_png(path)
+        assert got.dtype == np.uint8
+        np.testing.assert_array_equal(got, img)
+        want = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        np.testing.assert_array_equal(want[..., ::-1] if img.ndim == 3 else want, img)
+    with pytest.raises(ValueError):
+        write_png(str(tmp_path / "bad.png"), rgb.astype(np.float32))
+    with pytest.raises(ValueError):
+        write_png(str(tmp_path / "bad.png"), np.zeros((4, 4, 4), np.uint8))
+
+
+def test_timer_and_bench_op_on_the_cpu(tmp_path):
+    import time
+
+    from oclcomputervision_tpu_torch.utils import Timer
+    from oclcomputervision_tpu_torch.utils.profiling import bench_op, device_trace
+
+    t = Timer()
+    assert t.mean_ms == 0.0
+    for _ in range(3):
+        with t.measure():
+            time.sleep(0.002)
+    assert t.count == 3 and t.total_ms >= 6.0 and t.mean_ms == t.total_ms / 3
+    calls = []
+
+    def fn(x):
+        calls.append(x)
+        time.sleep(0.002)
+
+    ms = bench_op(fn, 1, warmup=1, iters=5)
+    assert len(calls) == 6 and 2.0 <= ms < 1000.0
+    with device_trace(str(tmp_path / "trace")):
+        np.sort(np.random.default_rng(0).random(1000))
+    with open(tmp_path / "trace" / "trace.pt.trace.json") as f:
+        assert "traceEvents" in f.read()
 
 
 def test_assets_and_psnr_equal_jax():

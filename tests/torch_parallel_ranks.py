@@ -25,6 +25,7 @@ from oclcomputervision_tpu_torch.utils.config import RaisrConfig
 
 RANKS = 4
 BLOCK = (32, 32)  # local histeq: one block row per rank on 128 rows
+SHIPPED = RaisrConfig(fidelity="shipped")  # x2: the cheap upscale alone
 PIPE = EnhanceConfig(equalize="global", superres="raisr", resize_to=(40, 56), pyramid_depth=2)
 
 
@@ -86,6 +87,8 @@ def main(device, out_path: str) -> None:
         x["f0"], x["f1"], mesh, search_size=9, patch_size=3)
     both("raisr", lambda lr: parallel.raisr_upsample_sharded(lr, model.filters, model.cfg, mesh),
          x["lr"])
+    both("raisr_shipped", lambda lr: parallel.raisr_upsample_sharded(
+        lr, model.filters, SHIPPED, mesh), x["lr"])
     both("data_parallel", parallel.data_parallel(ops.histeq_global, mesh), x["batch"])
     sharded = EnhancePipeline(PIPE, raisr_model=model).sharded(mesh)
     for tag, batch in (("", x["batch"][:RANKS]),
