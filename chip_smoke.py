@@ -172,6 +172,22 @@ failure raises, and the script exits non-zero without the result line):
    tensors against the same calls on CPU tensors at 2 x 256^2 LR, x2: the
    upscale within 1.2e-7, buckets agreeing on >= 0.9999, pixel types and
    census weights equal, the applies within 2e-5;
+7g. the program's stage spans and ``syncs`` counter (``utils.tracing``) at
+   the benchmark cells' shapes: ``RaisrModel.upsample`` on 16 x 1024^2 and
+   ``EnhancePipeline`` (global equalize, RAISR x2, bicubic to 1080 x 1920, a
+   3-level pyramid) on 16 x 720 x 1280, each called 2 x SAMPLE_EVERY times
+   under torch.profiler, call SAMPLE_EVERY inside a span ``ocv.planted``
+   that also reads one pixel back with ``.item()``: the record must hold
+   the two sampled calls (0 and SAMPLE_EVERY) alone, and ``syncs`` read 1
+   at ``ocv.raisr.in`` (RAISR), 1 at ``ocv.equalize`` and 1 at
+   ``ocv.raisr.in`` (enhance) in each, and 1 at ``ocv.planted``; the
+   benchmark's
+   ``read_profile`` of the same profile must list no ``ocv.`` name among
+   the device's operations. Then the tracer's traced host cost a call: the
+   mean host ms inside a call, 2 calls queued, with the tracer against
+   ``tracing.span`` patched to the no-op, in one profiled session,
+   TRACE_LOOPS loops of TRACE_CALLS calls each way in turns, each way first
+   on every other loop;
 8. the sharded paths of ``oclcomputervision_tpu_torch.parallel`` on
    ``torch.distributed``, each at full size: global histeq on a 4320x7680
    frame, local histeq on 4096x8192 at 256^2 blocks (clahe_clip 0 and 2),
@@ -2379,6 +2395,129 @@ def pipeline_phase(rng, card, device):
     return res
 
 
+TRACE_LOOPS = 10  # phase 7g's loops each way
+TRACE_CALLS = 32  # calls per loop: two sampled ones in each
+CELL_SHAPES = {"raisr_x2": (16, 1024, 1024), "enhance_720p": (16, 720, 1280)}
+# the syncs each span of one call must count
+CELL_SYNCS = {"raisr_x2": {"ocv.raisr.in": 1},
+              "enhance_720p": {"ocv.equalize": 1, "ocv.raisr.in": 1}}
+
+
+def _syncs_by_call(recs) -> list:
+    """[{span name: syncs}, ...] per call of a tracing record, in call order."""
+    out: dict = {}
+    for r in recs:
+        counted = out.setdefault(r.call, {})
+        if r.syncs:
+            counted[r.name] = counted.get(r.name, 0) + len(r.syncs)
+    return [out[c] for c in sorted(out)]
+
+
+def _host_ms(fn, x, calls: int) -> list:
+    """Host ms inside each of ``calls`` calls of ``fn(x)``, with 2 calls
+    queued on the card as in the benchmark's closed loop."""
+    import collections
+
+    import torch
+
+    pending, host = collections.deque(), []
+    for _ in range(calls):
+        t = time.perf_counter()
+        fn(x)
+        host.append(1e3 * (time.perf_counter() - t))
+        ev = torch.cuda.Event()
+        ev.record()
+        pending.append(ev)
+        if len(pending) >= 2:
+            pending.popleft().synchronize()
+    torch.cuda.synchronize()
+    return host
+
+
+def tracing_phase(rng, card, device):
+    """Phase 7g: the program's spans and syncs counter on the card, and the
+    tracer's traced host cost."""
+    import contextlib
+    import statistics
+    from unittest import mock
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from benchmark_torch.common.trace import read_profile
+    from oclcomputervision_tpu_torch.models import EnhanceConfig, EnhancePipeline, RaisrModel
+    from oclcomputervision_tpu_torch.utils import asset_path, tracing
+
+    model = RaisrModel.load(asset_path("raisr_filters_x2.npz"), device=device)
+    pipe = EnhancePipeline(EnhanceConfig(equalize="global", superres="raisr",
+                                         resize_to=PIPE_RESIZE, resize_method="bicubic",
+                                         pyramid_depth=PIPE_DEPTH), raisr_model=model)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    res = {}
+    every = tracing.SAMPLE_EVERY
+    for cell, fn in (("raisr_x2", model.upsample), ("enhance_720p", pipe)):
+        x = torch.from_numpy(lenna_batch(rng, *CELL_SHAPES[cell])).to(device)
+
+        def planted():
+            with tracing.span("ocv.planted"):
+                out = fn(x)
+                (out[0] if isinstance(out, tuple) else out)[0, 0, 0].item()
+
+        fn(x)
+        torch.cuda.synchronize()
+        tracing.reset()
+        # two runs of SAMPLE_EVERY calls: only the first of each is sampled,
+        # and the second run's first is the planted one
+        with profile(activities=acts) as prof:
+            with record_function("window"):
+                host_start = time.perf_counter()
+                for call in range(2 * every):
+                    planted() if call == every else fn(x)
+                torch.cuda.synchronize()
+        got = _syncs_by_call(tracing.records())
+        calls = sorted({r.call for r in tracing.records()})
+        want = [CELL_SYNCS[cell], {**CELL_SYNCS[cell], "ocv.planted": 1}]
+        leaked = sorted({n for n, _, _ in read_profile(prof, host_start).ops if "ocv." in n})
+        print(f"tracing {cell}: sampled calls {calls}, syncs per call {got} (want {want}); "
+              f"ocv. names among the device's operations: {leaked}")
+        if calls != [0, every] or got != want or leaked:
+            raise AssertionError(f"tracing {cell}: calls {calls}, syncs {got} != {want}, "
+                                 f"or leaked {leaked}")
+
+        # the tracer's traced host cost: with it and with the no-op, in turns,
+        # each first on every other loop
+        ways = {"tracer": contextlib.nullcontext,
+                "no-op": lambda: mock.patch.object(tracing, "span", lambda name: tracing._OFF)}
+        host = {(k, first): [] for k in ways for first in ways}
+        tracing.reset()
+        with profile(activities=acts):
+            for loop in range(TRACE_LOOPS + 2):
+                order = list(ways) if loop % 2 == 0 else list(ways)[::-1]
+                for way in order:
+                    with ways[way]():
+                        ms = _host_ms(fn, x, TRACE_CALLS)
+                    if loop > 1:  # the first two turns warm the profiled path up
+                        host[way, order[0]] += ms
+        tracing.reset()
+        # the mean carries the sampled calls, one in SAMPLE_EVERY; the median
+        # is a call that is not sampled
+        both = {k: host[k, "tracer"] + host[k, "no-op"] for k in ways}
+        med = {k: statistics.median(v) for k, v in both.items()}
+        mean = {k: statistics.fmean(v) for k, v in both.items()}
+        by_order = {first: statistics.fmean(host["tracer", first]) - statistics.fmean(host["no-op", first])
+                    for first in ways}
+        cost = mean["tracer"] - mean["no-op"]
+        print(f"[{card}] tracing {cell}: host ms inside a call, traced, of "
+              f"{TRACE_LOOPS} x {TRACE_CALLS} calls each way in turns: mean tracer "
+              f"{mean['tracer']:.4f}, no-op {mean['no-op']:.4f}: the tracer's cost {cost:+.4f} ms "
+              f"({by_order['tracer']:+.4f} in the loops it ran first, "
+              f"{by_order['no-op']:+.4f} in those it ran second); median tracer "
+              f"{med['tracer']:.4f}, no-op {med['no-op']:.4f}")
+        res[cell] = {"syncs": got, "host_ms_mean": mean, "host_ms_median": med,
+                     "tracer_cost_ms": cost, "tracer_cost_ms_by_first": by_order}
+    return res
+
+
 def compat_phase(rng, device):
     """Phase 7e: one call of each compat entry point on the card against its
     use_gpu=False / numpy oracle counterpart: histograms and motion equal,
@@ -3127,11 +3266,13 @@ def main() -> int:
     e2e = {"raisr_x2": e2e, "raisr_generic": e2e_generic, **histeq_e2e, **me_e2e,
            "me_epe": me_epe}
 
-    # phases 7-7e: resize, RAISR 'shipped', the trainer, EnhancePipeline, compat
+    # phases 7-7e and 7g: resize, RAISR 'shipped', the trainer, EnhancePipeline,
+    # the program's spans, compat
     e2e["resize"] = resize_phase(rng, card, device)
     e2e["raisr_shipped"] = shipped_phase(device)
     e2e["raisr_train"] = trainer_phase(card, device)
     e2e["enhance_pipeline"] = pipeline_phase(rng, card, device)
+    e2e["tracing"] = tracing_phase(rng, card, device)
     e2e["compat"] = compat_phase(rng, device)
 
     # phase 7f: ops.raisr's image-domain and plane ops, card against CPU

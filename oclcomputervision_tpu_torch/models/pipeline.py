@@ -4,9 +4,12 @@ Port of ``oclcomputervision_tpu/models/pipeline.py``: equalize ->
 super-resolution -> resize -> pyramid over an image or a batch, resident on
 one device end to end (the card unless the caller passes ``device="cpu"`` or
 a CPU tensor). Each stage is the port's op: the histeq and RAISR kernels on
-the card, their plain versions on the CPU. ``EnhancePipeline.sharded`` is the
-data-parallel variant over a ``parallel.make_mesh`` mesh: each rank runs the
-pipeline on its share of the batch.
+the card, their plain versions on the CPU. Under a profiler the call and its
+stages are spans of ``utils.tracing``: ``ocv.enhance`` around
+``ocv.equalize``, ``ocv.raisr``, ``ocv.resize`` and ``ocv.pyramid``.
+``EnhancePipeline.sharded`` is the data-parallel variant over a
+``parallel.make_mesh`` mesh: each rank runs the pipeline on its share of the
+batch.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from oclcomputervision_tpu_torch.ops.histeq import histeq_global, histeq_local_b
 from oclcomputervision_tpu_torch.ops.interpolation import resize_uint8
 from oclcomputervision_tpu_torch.ops.pyramid import gaussian_pyramid
 from oclcomputervision_tpu_torch.ops.raisr import raisr_upsample
+from oclcomputervision_tpu_torch.utils import tracing
 from oclcomputervision_tpu_torch.utils.config import HistEqConfig, LocalHistEqConfig
 
 
@@ -62,22 +66,29 @@ class EnhancePipeline:
 
     def __call__(self, gray, *, device=None):
         """Run on ``gray``'s device (a tensor), or on ``device`` (None: the card)."""
+        with tracing.span("ocv.enhance"):
+            return self._stages(as_tensor(gray, device))
+
+    def _stages(self, x):
         cfg = self.cfg
-        x = as_tensor(gray, device)
         batched = x.ndim == 3  # [B, H, W] luma stack
         if cfg.equalize == "global":
             h = cfg.histeq
-            x = histeq_global(x, h.alpha, h.punch, h.clip)
+            with tracing.span("ocv.equalize"):
+                x = histeq_global(x, h.alpha, h.punch, h.clip)
         elif cfg.equalize == "local":
             l = cfg.local
-            x = histeq_local_block(x, l.alpha, l.punch, l.clip, l.blockshape)
+            with tracing.span("ocv.equalize"):
+                x = histeq_local_block(x, l.alpha, l.punch, l.clip, l.blockshape)
         if cfg.superres == "raisr":
             # handles [H, W] and [B, H, W]; the bank follows the image
             x = raisr_upsample(x, self._raisr_filters.to(x.device), self._raisr_cfg)
         if cfg.resize_to is not None:
-            x = resize_uint8(x, cfg.resize_to, cfg.resize_method, batched=batched)
+            with tracing.span("ocv.resize"):
+                x = resize_uint8(x, cfg.resize_to, cfg.resize_method, batched=batched)
         if cfg.pyramid_depth > 0:
-            return x, gaussian_pyramid(x, 2, cfg.pyramid_depth, batched=batched)
+            with tracing.span("ocv.pyramid"):
+                return x, gaussian_pyramid(x, 2, cfg.pyramid_depth, batched=batched)
         return x
 
     def sharded(self, mesh, axis: str = "data"):

@@ -8,7 +8,10 @@ three stages are hand-written CUDA kernels (``kernels/``); everything around
 them is plain PyTorch. ``fidelity='shipped'`` (the reference's observable
 behaviour, ``_raisr_2d`` with ``_raisr_post``'s shipped branch) is the
 interleaved align-corners bilinear resize of ``ops/interpolation`` and, for
-colour, an RGB->YUV->RGB round trip: torch ops, no kernel.
+colour, an RGB->YUV->RGB round trip: torch ops, no kernel. Under a
+profiler the call is the span ``ocv.raisr`` of ``utils.tracing``, with the
+full path's stages ``ocv.raisr.in``, ``.upscale``, ``.hash``, ``.apply``
+and ``.out`` inside it.
 
 Plane convention (shared with the kernels and with the JAX package):
 ``planes[a*s + b][hp + i, hp + j] = up_e(s*i + a, s*j + b)``, where up_e is
@@ -36,6 +39,7 @@ from oclcomputervision_tpu_torch.kernels import upscale as kupscale
 from oclcomputervision_tpu_torch.ops.interpolation import _axis_table, _resize_plane
 from oclcomputervision_tpu_torch.oracle import raisr as oracle_raisr
 from oclcomputervision_tpu_torch.oracle.interpolation import axis_weights
+from oclcomputervision_tpu_torch.utils import tracing
 from oclcomputervision_tpu_torch.utils.config import RaisrConfig
 
 TILE_H = 64  # plane rows are padded to a multiple of this
@@ -222,13 +226,15 @@ def _raisr_planes_batched(
     geo = plane_geometry(h, w, cfg)
     h2p, w2p, hp, hq, wq = geo.h2p, geo.w2p, geo.hp, geo.hq, geo.wq
 
-    x01 = true_div(imgs_u8.to(torch.float32), 255.0)
-    if nchan == 1:
-        chan_planes = [stages.upscale(x01, cfg, hq, wq, hp, row0, h_img)]
-    else:
-        stacked = torch.cat([x01[..., c] for c in range(nchan)], dim=0)
-        up_all = stages.upscale(stacked, cfg, hq, wq, hp, row0, h_img)
-        chan_planes = [up_all[c * bsz : (c + 1) * bsz] for c in range(nchan)]
+    with tracing.span("ocv.raisr.in"):
+        x01 = true_div(imgs_u8.to(torch.float32), 255.0)
+    with tracing.span("ocv.raisr.upscale"):
+        if nchan == 1:
+            chan_planes = [stages.upscale(x01, cfg, hq, wq, hp, row0, h_img)]
+        else:
+            stacked = torch.cat([x01[..., c] for c in range(nchan)], dim=0)
+            up_all = stages.upscale(stacked, cfg, hq, wq, hp, row0, h_img)
+            chan_planes = [up_all[c * bsz : (c + 1) * bsz] for c in range(nchan)]
 
     # the CSC is linear and pointwise: apply it in plane space
     if nchan == 1:
@@ -241,37 +247,40 @@ def _raisr_planes_batched(
         if nchan == 4:
             yuv_planes.append(chan_planes[3])  # alpha passes through
 
-    bucket_pl = stages.hash(yuv_planes[0], cfg, hp, h2p, w2p)
+    with tracing.span("ocv.raisr.hash"):
+        bucket_pl = stages.hash(yuv_planes[0], cfg, hp, h2p, w2p)
 
     nc = len(yuv_planes)
-    stacked_in = yuv_planes[0] if nc == 1 else torch.cat(yuv_planes, dim=0)
-    stacked_out = stages.apply(stacked_in, bucket_pl, filters, cfg)
-    filtered = [stacked_out[c * bsz : (c + 1) * bsz] for c in range(nc)]
+    with tracing.span("ocv.raisr.apply"):
+        stacked_in = yuv_planes[0] if nc == 1 else torch.cat(yuv_planes, dim=0)
+        stacked_out = stages.apply(stacked_in, bucket_pl, filters, cfg)
+        filtered = [stacked_out[c * bsz : (c + 1) * bsz] for c in range(nc)]
 
-    if cfg.blend == "ct":
-        # luma-derived structure weights fade every filtered channel back to
-        # the cheap upscale in unstructured regions
-        wgt = _ct_blend_weight_planes(yuv_planes[0], s, hp, h2p, w2p)
-        filtered = [
-            wgt * f + (1.0 - wgt) * yuv_planes[c][:, :, hp : hp + h2p, hp : hp + w2p]
-            for c, f in enumerate(filtered)
-        ]
+    with tracing.span("ocv.raisr.out"):
+        if cfg.blend == "ct":
+            # luma-derived structure weights fade every filtered channel back to
+            # the cheap upscale in unstructured regions
+            wgt = _ct_blend_weight_planes(yuv_planes[0], s, hp, h2p, w2p)
+            filtered = [
+                wgt * f + (1.0 - wgt) * yuv_planes[c][:, :, hp : hp + h2p, hp : hp + w2p]
+                for c, f in enumerate(filtered)
+            ]
 
-    if nchan == 1:
-        out_pl = [filtered[0]]
-    else:
-        inv = oracle_raisr.YUV2RGB
-        out_pl = [
-            sum(float(inv[r, c]) * filtered[c] for c in range(3)) for r in range(3)
-        ]
-        if nchan == 4:
-            out_pl.append(filtered[3])
+        if nchan == 1:
+            out_pl = [filtered[0]]
+        else:
+            inv = oracle_raisr.YUV2RGB
+            out_pl = [
+                sum(float(inv[r, c]) * filtered[c] for c in range(3)) for r in range(3)
+            ]
+            if nchan == 4:
+                out_pl.append(filtered[3])
 
-    # torch.round, like jnp.round, rounds half to even
-    u8 = [torch.clamp(torch.round(o * 255.0), 0, 255).to(torch.uint8) for o in out_pl]
-    # interleave in uint8 (4x less traffic than f32), then crop
-    outs = [interleave_planes(o, s, s * h, s * w) for o in u8]
-    return outs[0] if nchan == 1 else torch.stack(outs, dim=-1)
+        # torch.round, like jnp.round, rounds half to even
+        u8 = [torch.clamp(torch.round(o * 255.0), 0, 255).to(torch.uint8) for o in out_pl]
+        # interleave in uint8 (4x less traffic than f32), then crop
+        outs = [interleave_planes(o, s, s * h, s * w) for o in u8]
+        return outs[0] if nchan == 1 else torch.stack(outs, dim=-1)
 
 
 def min_band_halo(cfg: RaisrConfig) -> int:
@@ -356,17 +365,18 @@ def raisr_upsample(
     gray = img.ndim == 2 or (img.ndim == 3 and img.shape[-1] not in (3, 4))
     single = img.ndim == 2 or (img.ndim == 3 and not gray)
     batch = img[None] if single else img
-    if cfg.fidelity == "shipped":
-        out = _raisr_shipped(batch[..., None] if gray else batch, cfg.scale, gray)
-        out = out[..., 0] if gray else out
+    with tracing.span("ocv.raisr"):
+        if cfg.fidelity == "shipped":
+            out = _raisr_shipped(batch[..., None] if gray else batch, cfg.scale, gray)
+            out = out[..., 0] if gray else out
+            return out[0] if single else out
+        fl = cfg.filter_len
+        if filters is None:
+            filters = torch.zeros((cfg.num_filters, fl, fl), device=img.device)
+        filters = filters.to(device=img.device, dtype=torch.float32)
+        nchan = 1 if gray else img.shape[-1]
+        out = _raisr_planes_batched(batch.contiguous(), filters, cfg, nchan)
         return out[0] if single else out
-    fl = cfg.filter_len
-    if filters is None:
-        filters = torch.zeros((cfg.num_filters, fl, fl), device=img.device)
-    filters = filters.to(device=img.device, dtype=torch.float32)
-    nchan = 1 if gray else img.shape[-1]
-    out = _raisr_planes_batched(batch.contiguous(), filters, cfg, nchan)
-    return out[0] if single else out
 
 
 # ---------------------------------------------------------------------------

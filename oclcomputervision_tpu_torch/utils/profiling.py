@@ -120,6 +120,21 @@ def device_trace(logdir: str):
 
 
 PROFILE_WINDOWS = 3  # profiled windows device_profile tries before it fails
+PROFILE_WINDOW = "device_profile.window"  # the host range around the profiled calls
+
+
+def idle_share(busy, window) -> float:
+    """1 - the share of ``window`` (start, end) that the union of the
+    ``busy`` (start, end) intervals covers: overlaps count once, and time in
+    the window before the first and after the last interval counts as idle."""
+    w0, w1 = window
+    covered, reach = 0.0, w0
+    for s, e in sorted(busy):
+        s, e = max(s, reach), min(e, w1)
+        if e > s:
+            covered += e - s
+            reach = e
+    return 1.0 - covered / (w1 - w0)
 
 
 def device_profile(fn: Callable, *args, calls: int = 5) -> tuple[dict, float]:
@@ -128,32 +143,39 @@ def device_profile(fn: Callable, *args, calls: int = 5) -> tuple[dict, float]:
     JAX package's ``profile_device``.
 
     Runs ``fn`` once to warm up, then ``calls`` times under the profiler.
-    Returns ({kernel name: ms per call}, idle share), where the idle share
-    is 1 - (summed kernel time) / (first kernel start to last kernel end).
+    Returns ({kernel name: ms per call}, idle share). The device's activity
+    is its kernels and copies, not the device ranges of annotations such as
+    ``record_function``'s; the idle share is ``idle_share`` of that activity
+    over the whole profiled window, from before the first call to the end
+    of the synchronise after the last.
     A window in which the profiler delivered no device event at all is
     profiled again, up to ``PROFILE_WINDOWS`` windows: on the H100 the
     profiler has now and then returned none for a window whose kernels ran.
     Fails without a card, or when no window saw device activity.
     """
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     require_cuda()
     fn(*args)
     torch.cuda.synchronize()
-    events = []
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events, window = [], None
     for _ in range(PROFILE_WINDOWS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn(*args)
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            with record_function(PROFILE_WINDOW):
+                for _ in range(calls):
+                    fn(*args)
+                torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == cuda
+                  and not getattr(e, "is_user_annotation", False)]
         if events:
+            window = next(e.time_range for e in prof.events()
+                          if e.name == PROFILE_WINDOW and e.device_type == cpu)
             break
     if not events:
         raise RuntimeError(f"torch.profiler recorded no device activity in {PROFILE_WINDOWS} windows")
     per_kernel: dict = {}
     for e in events:
         per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.device_time / 1e3 / calls
-    busy_us = sum(e.device_time for e in events)
-    span_us = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
-    return per_kernel, 1.0 - busy_us / span_us
+    busy = [(e.time_range.start, e.time_range.end) for e in events]
+    return per_kernel, idle_share(busy, (window.start, window.end))
