@@ -137,14 +137,18 @@ failure raises, and the script exits non-zero without the result line):
    time at the 4-pair finest level beside its bound (also with L2 flushed
    before every call), and the exact search kernel unseeded on 8 pairs
    beside its own bound;
-7. resize (``ops.resize_uint8``, ``ops.resize``; torch ops, no kernel):
+7. resize (``ops.resize_uint8``, ``ops.resize``; the resize_sep kernel):
    bilinear and bicubic under the three mappings on gray lenna, RGB lenna
-   and a 3x256x320 stack, up and down, against device="cpu" (uint8 equal or
-   within one level on 99.99 %, float within 1e-4) and the numpy oracle
-   (within one level), no kernel launched; output MP/s at bench.py's
-   16x1024^2 -> 2048^2 beside F.interpolate (a yardstick, another function);
+   and a 3x256x320 stack, up and down, uint8 and f32 out, float input, the
+   enhance cell's 16x1440x2560 -> 1080x1920 bicubic and a
+   ``_raisr_shipped`` band: each call one launch and equal bit for bit to
+   the plain passes on the card tensor; against device="cpu" (uint8 equal
+   or within one level on 99.99 %, float within 1e-4) and the numpy oracle
+   (within one level); the kernel's time at the cell's shape and at
+   bench.py's 16x1024^2 -> 2048^2 beside its bytes bound, the plain passes
+   and F.interpolate (a yardstick, another function);
 7b. RAISR fidelity='shipped' through ``RaisrModel.load(...).upsample`` on
-   gray, RGB and BGRA lenna against device="cpu", no kernel launched;
+   gray, RGB and BGRA lenna against device="cpu", one resize_sep launch;
 7c. the RAISR trainer at RaisrConfig() (864 filters of 11x11) on
    train_corpus(), augment='starved', float32 matmuls at full precision:
    lenna's features through the upscale and hash kernels against the plain
@@ -155,14 +159,14 @@ failure raises, and the script exits non-zero without the result line):
    the bank above bicubic and within 0.05 dB of the JAX package's bank on
    the same corpus (JAX_TRAINED_FRAME11_DB), the shipped bank's beside it;
 7d. ``EnhancePipeline`` (global equalize, RAISR x2, bicubic resize to
-   1080x1920, a 3-level pyramid) on 16x768x1280 lenna tiles: the histeq
-   and RAISR launch counts, 2 images against device="cpu" (the equalized
+   1080x1920, a 3-level pyramid) on 16x768x1280 lenna tiles: the histeq,
+   RAISR and resize launch counts, 2 images against device="cpu" (the equalized
    stage equal, the output and levels within one level on 99.9 %), input
    MP/s, the device's idle share and each stage's time alone; then
    equalize='local' on 2 images, untimed;
 7e. one call of each ``compat`` entry point on the card against its
    use_gpu=False or numpy oracle counterpart (histeq global and local,
-   HistEq's three methods, Utility's three, Raisr, the exact search with and
+   HistEq's three methods, Utility's three (the resize kernel), Raisr, the exact search with and
    without a seed, gaussian_pyramid, upscale_mv), each with the kernels it
    must launch;
 7f. the image-domain and plane RAISR ops of ``ops.raisr`` (the JAX
@@ -194,7 +198,7 @@ failure raises, and the script exits non-zero without the result line):
    fast and exact motion (15/5) on a 2160x3840 pair of frame10/11 tiles
    with noise, RAISR x2 (the shipped bank, halo 8) on a 2048^2 LR image,
    with fidelity='full' and 'shipped' (the bilinear upscale alone, which
-   must launch no kernel), ``raisr_train_step`` (RaisrConfig(), a (2, 2)
+   must launch the resize kernel), ``raisr_train_step`` (RaisrConfig(), a (2, 2)
    dp x tp mesh) on phase 7c's corpus through the trainer's features, and
    ``EnhancePipeline.sharded`` on phase 7d's stack; first on 4 gloo ranks
    sharing the card (``parallel/launch.py`` in a child process; NCCL
@@ -402,6 +406,11 @@ KERNELS = {
     "me_fast_median": (
         "oclcomputervision_tpu_torch/kernels/csrc/me_fast_median.cu",
         "oclcomputervision_tpu/ops/pallas/me_fast_pallas.py:301",
+    ),
+    # no TPU kernel: the JAX resize is plain jnp, whose torch passes this replaces
+    "resize_sep": (
+        "oclcomputervision_tpu_torch/kernels/csrc/resize_sep.cu",
+        "none (oclcomputervision_tpu/ops/interpolation.py is plain jnp)",
     ),
 }
 
@@ -2053,6 +2062,8 @@ RESIZE_METHODS = ("bilinear", "bicubic")
 RESIZE_MAPPINGS = ("align_corners", "hw_sampler", "half_pixel")
 RESIZE_STACK = (3, 256, 320)  # the [B, H, W] luma stack phase 7 checks
 RESIZE_BENCH = (16, 1024, 1024)  # bench.py:378's batch: 1024^2 -> 2048^2 uint8
+# enhance_720p.batch16's resize: its RAISR x2 output, 1440 x 2560, to 1080p
+RESIZE_CELL = (16, 1440, 2560, (1080, 1920))
 RESIZE_CPU_SHARE = 0.9999  # card vs CPU: equal, or within one level on this share
 RESIZE_FLOAT_TOL = 1e-4  # float resize, card vs CPU, on the [0, 255] scale
 # frame11 x2 PSNR (dB) of the JAX package's train_filters on train_corpus() at
@@ -2081,26 +2092,91 @@ def _no_launches(tag: str) -> None:
         raise AssertionError(f"{tag} launched kernels: {dict(_build.LAUNCHES)}")
 
 
+def _launched_once(tag: str, kernel: str, fn, *args, **kw):
+    """``fn(*args, **kw)`` on the card, which must launch ``kernel`` once and
+    no other kernel of the library."""
+    import torch
+
+    from oclcomputervision_tpu_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    seen = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if seen != {kernel: 1}:
+        raise AssertionError(f"{tag} launched {seen}, not {kernel} once")
+    return out
+
+
+def _bits_equal(a, b) -> bool:
+    """Two tensors of one dtype and shape, equal bit for bit (f32 by its bits)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def plain_resize(x, out_hw, method, mapping="align_corners", batched=None, out_dtype=None):
+    """``ops.resize`` (f32 out) or ``ops.resize_uint8`` (``out_dtype`` uint8)
+    of a tensor on its own device through the plain passes
+    (``ops.interpolation._resize_passes``): what the CPU path computes."""
+    import torch
+
+    from oclcomputervision_tpu_torch.ops import interpolation as interp
+
+    x4, unpack = interp._channels_last(x.to(torch.float32), batched)
+    out = interp._resize_passes(x4, out_hw, method, mapping)
+    if method == "bicubic":
+        out = torch.clamp(out, 0.0, 1.0 if x.dtype.is_floating_point else 255.0)
+    if out_dtype == torch.uint8:
+        out = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+    return unpack(out)
+
+
 def resize_phase(rng, card, device):
-    """Phase 7: ``ops.resize_uint8`` and ``ops.resize`` on the card, bilinear
-    and bicubic under the three mappings, on gray lenna, RGB lenna and a
-    [B, H, W] stack, up and down: held against the same calls with
-    device="cpu" and against the numpy oracle; then timed at the bench
-    geometry beside F.interpolate (a yardstick: another function)."""
+    """Phase 7: ``ops.resize_uint8`` and ``ops.resize`` on the card through
+    the resize kernel (``kernels/csrc/resize_sep.cu``), bilinear and bicubic
+    under the three mappings, on gray lenna, RGB lenna and a [B, H, W]
+    stack, up and down, and on float input: each call one launch, equal bit
+    for bit to the plain passes on the same card tensor, and held against
+    the same calls with device="cpu" and the numpy oracle; the enhance
+    cell's 16 x 1440 x 2560 -> 1080 x 1920 bicubic and a ``_raisr_shipped``
+    band (its row table rebased) the same way; then the kernel's own time
+    at the cell's shape and at RESIZE_BENCH beside its bytes bound, the
+    plain passes and F.interpolate (a yardstick: another function).
+    Returns (phase record, the kernel's checks, its times, its launches)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from oclcomputervision_tpu_torch import ops
-    from oclcomputervision_tpu_torch.kernels import _build
+    from oclcomputervision_tpu_torch.ops import interpolation as interp
+    from oclcomputervision_tpu_torch.ops import raisr as ops_raisr
     from oclcomputervision_tpu_torch.oracle import interpolation as oracle
-    from oclcomputervision_tpu_torch.utils import cuda_time_ms, device_profile, load_gray, load_image
+    from oclcomputervision_tpu_torch.utils import cuda_time_ms, load_gray, load_image
 
+    u8 = torch.uint8
     inputs = {"gray lenna": (load_gray("lenna.png"), None), "RGB lenna": (load_image("lenna.png"), None),
               "luma stack": (lenna_batch(rng, *RESIZE_STACK), True)}
     worst = {"cpu_share": 1.0, "cpu_float_err": 0.0, "oracle_max": 0}
-    torch.cuda.synchronize()
-    _build.reset_launches()
+    calls = 0
+
+    def both(tag, x, out_hw, method, mapping="align_corners", batched=None, out_dtype=torch.float32):
+        nonlocal calls
+        fn = ops.resize_uint8 if out_dtype == u8 else ops.resize
+        got = _launched_once(tag, "resize_sep", fn, x, out_hw, method, mapping, batched=batched)
+        want = plain_resize(x, out_hw, method, mapping, batched, out_dtype)
+        calls += 1
+        if not _bits_equal(got, want):
+            diff = (got.double() - want.double()).abs().max().item()
+            raise AssertionError(f"resize {tag}: the kernel differs from the plain passes "
+                                 f"(max |diff| {diff})")
+        return got
+
     for tag, (img, batched) in inputs.items():
         h, w = img.shape[1:3] if batched else img.shape[:2]
         x = torch.from_numpy(img).to(device)
@@ -2108,11 +2184,13 @@ def resize_phase(rng, card, device):
             for method in RESIZE_METHODS:
                 for mapping in RESIZE_MAPPINGS:
                     args = (out_hw, method, mapping)
-                    got = ops.resize_uint8(x, *args, batched=batched)
+                    case = f"{tag} {size} {method} {mapping}"
+                    got = both(case, x, *args, batched=batched, out_dtype=u8)
+                    got_f = both(case + " f32", x, *args, batched=batched)
                     cpu = ops.resize_uint8(img, *args, batched=batched, device="cpu")
                     share = _within_one(got, cpu)
-                    ferr = (ops.resize(x, *args, batched=batched).cpu()
-                            - ops.resize(img, *args, batched=batched, device="cpu")).abs().max().item()
+                    ferr = (got_f.cpu() - ops.resize(img, *args, batched=batched, device="cpu")
+                            ).abs().max().item()
                     imgs = list(img) if batched else [img]
                     want = np.stack([oracle.resize_uint8(i, *args) for i in imgs])
                     omax = int(np.abs(got.cpu().numpy().reshape(want.shape).astype(int)
@@ -2122,48 +2200,91 @@ def resize_phase(rng, card, device):
                     worst["oracle_max"] = max(worst["oracle_max"], omax)
                     if share < RESIZE_CPU_SHARE or ferr > RESIZE_FLOAT_TOL or omax > 1:
                         raise AssertionError(
-                            f"resize {tag} {size} {method} {mapping}: {share} within one level "
-                            f"of the CPU, float {ferr}, oracle max {omax}")
-    torch.cuda.synchronize()
-    _no_launches("resize")
-    print(f"resize: {len(inputs) * 2 * len(RESIZE_METHODS) * len(RESIZE_MAPPINGS)} cases "
-          f"(gray, RGB, a {RESIZE_STACK} stack; up and down; bilinear and bicubic under "
-          f"{', '.join(RESIZE_MAPPINGS)}): card vs CPU uint8 within one level on >= "
-          f"{worst['cpu_share']:.7f} (min {RESIZE_CPU_SHARE}), float max |diff| "
-          f"{worst['cpu_float_err']:.3e} (max {RESIZE_FLOAT_TOL}); vs numpy oracle max "
-          f"{worst['oracle_max']} level (max 1); no kernel launched")
-
-    n, h, w = RESIZE_BENCH
-    x = torch.randint(0, 256, (n, h, w, 1), dtype=torch.uint8, device=device)
-    out_hw = (2 * h, 2 * w)
-    mp_out = n * out_hw[0] * out_hw[1] / 1e6
-    timings = {}
+                            f"resize {case}: {share} within one level of the CPU, float {ferr}, "
+                            f"oracle max {omax}")
+    cases = len(inputs) * 2 * len(RESIZE_METHODS) * len(RESIZE_MAPPINGS)
+    # float input (read as f32), a strong downscale (the direct form) and odd
+    # widths; rows of 77 and 308 bytes (not 16-byte multiples: the kernel's
+    # element-wise staging)
+    g01 = torch.from_numpy(load_gray("lenna.png")).to(device).float() / torch.tensor(255.0, device=device)
+    odd = torch.from_numpy(lenna_batch(rng, 2, 101, 77)).to(device)
     for method in RESIZE_METHODS:
-        ms = cuda_time_ms(ops.resize_uint8, x, out_hw, method)
+        for out_hw in ((1031, 997), (67, 45), (301, 13)):
+            both(f"float gray -> {out_hw} {method}", g01, out_hw, method)
+            both(f"float gray -> {out_hw} {method} uint8", g01, out_hw, method, out_dtype=u8)
+        for x, tag in ((odd, "uint8"), (odd.float() / torch.tensor(255.0, device=device), "float")):
+            for out_hw in ((203, 151), (60, 50)):
+                both(f"{tag} 2 x 101 x 77 -> {out_hw} {method}", x, out_hw, method, batched=True,
+                     out_dtype=u8)
 
-        def lib(method=method):
-            y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=out_hw, mode=method,
-                              align_corners=True)
-            return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
+    # the enhance cell's resize: RAISR x2 of 720p to 1080p, bicubic, uint8
+    n, h, w, out_hw = RESIZE_CELL
+    cell = torch.randint(0, 256, (n, h, w), dtype=u8, device=device)
+    both(f"enhance cell {(n, h, w)} -> {out_hw}", cell, out_hw, "bicubic", batched=True, out_dtype=u8)
 
-        lms = cuda_time_ms(lib)
-        per_kernel, idle = device_profile(lambda m=method: ops.resize_uint8(x, out_hw, m))
-        busy = sum(per_kernel.values())
-        timings[method] = {"ms": ms, "mp_out_per_s": mp_out / ms * 1e3, "device_ms": busy,
-                           "idle_share": idle, "library_ms": lms,
-                           "library_mp_out_per_s": mp_out / lms * 1e3}
-        print(f"[{card}] resize_uint8 {method} {tuple(x.shape)} -> {out_hw}: {ms:.4f} ms, "
-              f"{mp_out / ms * 1e3:.2f} MP out/s (device busy {busy:.4f} ms, idle share "
-              f"{idle:.4f}, {len(per_kernel)} kernels); F.interpolate(mode={method!r}, "
-              f"align_corners=True) + round: {lms:.4f} ms, {mp_out / lms * 1e3:.2f} MP out/s "
-              f"(a yardstick, not the port: {'a = -0.75' if method == 'bicubic' else 'f32 coordinates'})")
-    return {**worst, "bench": timings}
+    # fidelity='shipped' on a band: f32 input, bilinear x2, the band's row table
+    band = torch.from_numpy(lenna_batch(rng, 1, 96, 160)[..., None]).to(device)
+    h_img, row0 = 256, 37
+    got = _launched_once("_raisr_shipped band", "resize_sep", ops_raisr._raisr_shipped, band, 2,
+                         True, row0, h_img)
+    kernel_plane = ops_raisr._resize_plane
+    ops_raisr._resize_plane = interp._resize_passes  # the same call through the plain passes
+    try:
+        want = ops_raisr._raisr_shipped(band, 2, True, row0, h_img)
+    finally:
+        ops_raisr._resize_plane = kernel_plane
+    calls += 1
+    if not _bits_equal(got, want):
+        raise AssertionError("resize: _raisr_shipped's band through the kernel differs from the passes")
+    print(f"resize: {cases} cases (gray, RGB, a {RESIZE_STACK} stack; up and down; bilinear and "
+          f"bicubic under {', '.join(RESIZE_MAPPINGS)}; uint8 and f32 out), float input at 3 sizes "
+          f"each way, 77-pixel rows, the enhance cell's {(n, h, w)} -> {out_hw} bicubic and a _raisr_shipped band: "
+          f"{calls} calls, each one resize_sep launch and equal bit for bit to the plain passes on "
+          f"the card; card vs CPU uint8 within one level on >= {worst['cpu_share']:.7f} (min "
+          f"{RESIZE_CPU_SHARE}), float max |diff| {worst['cpu_float_err']:.3e} (max "
+          f"{RESIZE_FLOAT_TOL}); vs numpy oracle max {worst['oracle_max']} level (max 1)")
+
+    timings = {}
+    rows = {"cell": (cell, out_hw, ("bicubic",)),
+            "bench": (torch.randint(0, 256, RESIZE_BENCH, dtype=u8, device=device),
+                      (2 * RESIZE_BENCH[1], 2 * RESIZE_BENCH[2]), RESIZE_METHODS)}
+    for where, (x, hw, methods) in rows.items():
+        mp_out = x.shape[0] * hw[0] * hw[1] / 1e6
+        for method in methods:
+            def kernel(m=method, x=x, hw=hw):
+                return ops.resize_uint8(x, hw, m, batched=True)
+
+            def lib(m=method, x=x, hw=hw):
+                y = F.interpolate(x[:, None].float(), size=hw, mode=m, align_corners=True)
+                return torch.clamp(torch.round(y), 0, 255).to(u8)
+
+            kms = kernel_ms("resize_sep", kernel)
+            # per output, 2 x taps products and sums of the column pass and as many of the row pass
+            taps = 4 if method == "bicubic" else 2
+            bms, by = bound("resize_sep", x.numel() + x.shape[0] * hw[0] * hw[1],
+                            x.shape[0] * hw[0] * hw[1], ops=4 * taps)
+            pms = cuda_time_ms(plain_resize, x, hw, method, "align_corners", True, u8)
+            lms = cuda_time_ms(lib)
+            timings[f"{where} {method}"] = {
+                "shape": [*x.shape, *hw], "kernel_ms": kms, "bound_ms": bms, "bound_by": by,
+                "roofline_share": bms / kms, "mp_out_per_s": mp_out / kms * 1e3,
+                "plain_ms": pms, "library_ms": lms}
+            print(f"[{card}] resize_sep {method} uint8 {tuple(x.shape)} -> {hw}: kernel {kms:.4f} ms, "
+                  f"{mp_out / kms * 1e3:.2f} MP out/s, bound {bms:.4f} ms ({by}; "
+                  f"{100 * bms / kms:.1f} %); plain passes {pms:.4f} ms; F.interpolate(mode="
+                  f"{method!r}, align_corners=True) + round {lms:.4f} ms (a yardstick, not the "
+                  f"port: {'a = -0.75' if method == 'bicubic' else 'f32 coordinates'})")
+    cell_t = timings["cell bicubic"]
+    checks = {"max_abs_err": 0.0, "cases": calls}
+    times = {"ms": cell_t["kernel_ms"], "bound_ms": cell_t["bound_ms"], "plain_ms": cell_t["plain_ms"],
+             "library_ms": cell_t["library_ms"], "bench": timings}
+    return {**worst, "calls": calls, "bench": timings}, checks, times, calls
 
 
 def shipped_phase(device):
     """Phase 7b: RaisrModel.load(x2 bank, fidelity='shipped').upsample on
     gray, RGB and BGRA lenna, on the card against device="cpu": the bilinear
-    upscale and the YUV round trip, no kernel."""
+    upscale (one resize_sep launch) and the YUV round trip."""
     import numpy as np
     import torch
 
@@ -2179,16 +2300,12 @@ def shipped_phase(device):
     bgra = np.ascontiguousarray(np.concatenate([rgb[..., ::-1], alpha[..., None]], -1))
     shares = {}
     for tag, img in (("gray", load_gray("lenna.png")), ("RGB", rgb), ("BGRA", bgra)):
-        torch.cuda.synchronize()
-        _build.reset_launches()
-        got = card.upsample(img)
-        torch.cuda.synchronize()
-        _no_launches(f"shipped {tag}")
+        got = _launched_once(f"shipped {tag}", "resize_sep", card.upsample, img)
         want = cpu.upsample(img)
         shares[tag] = _within_one(got, want)
         print(f"RAISR shipped {tag}: {img.shape} -> {tuple(got.shape)} uint8, "
               f"{shares[tag]:.7f} of values within one level of device='cpu' (min {E2E_WITHIN_ONE}); "
-              f"no kernel launched")
+              f"one resize_sep launch")
         if tuple(got.shape) != tuple(want.shape) or shares[tag] < E2E_WITHIN_ONE:
             raise AssertionError(f"shipped {tag}: card and CPU disagree ({shares[tag]})")
     return shares
@@ -2350,7 +2467,8 @@ def pipeline_phase(rng, card, device):
         out, levels = pipe(inp)
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
-        need = (GLOBAL_KERNELS if equalize == "global" else LOCAL_KERNELS) + RAISR_KERNELS
+        need = ((GLOBAL_KERNELS if equalize == "global" else LOCAL_KERNELS) + RAISR_KERNELS
+                + ("resize_sep",))
         missing = [k for k in need if launches[k] < 1]
         print(f"EnhancePipeline equalize={equalize!r}: {tuple(inp.shape)} uint8 -> "
               f"{tuple(out.shape)} and levels {[tuple(v.shape) for v in levels]}, launches {launches}")
@@ -2594,10 +2712,10 @@ def compat_phase(rng, device):
                                   ("bilinear_lds", "bilinear", "align_corners"),
                                   ("bicubic", "bicubic", "align_corners")):
         dst = np.zeros((700, 900, 3), np.uint8)
-        (ms,), _, _ = launched(f"Utility.{name}", (), getattr(util, name), rgb, dst)
+        (ms,), _, seen = launched(f"Utility.{name}", ("resize_sep",), getattr(util, name), rgb, dst)
         want = o_interp.resize_uint8(rgb, (700, 900), method, mapping)
         check(f"Utility.{name}", maxdiff(dst, want) <= 1,
-              f"max {maxdiff(dst, want)} vs the oracle ({mapping}), {ms:.3f} ms")
+              f"max {maxdiff(dst, want)} vs the oracle ({mapping}), {seen}, {ms:.3f} ms")
 
     r = compat.Raisr(0)
     src = g[128:384, 128:384]
@@ -2745,12 +2863,12 @@ SHARD_KERNELS = {
     "motion_fast": ("me_fast_round", "me_fast_median"),
     "motion_exact": ("me_exact",),
     "raisr": RAISR_KERNELS,
-    "raisr_shipped": (),  # the bilinear upscale alone: torch ops
+    "raisr_shipped": ("resize_sep",),  # the bilinear upscale alone
     # the train step's global arrays, which every rank makes of the corpus;
     # the step itself is torch.matmul per bucket piece and torch.linalg.solve
     "train_features": ("upscale_planes", "raisr_hash"),
     "train": (),
-    "pipeline": GLOBAL_KERNELS + RAISR_KERNELS,
+    "pipeline": GLOBAL_KERNELS + RAISR_KERNELS + ("resize_sep",),
 }
 
 
@@ -3268,7 +3386,8 @@ def main() -> int:
 
     # phases 7-7e and 7g: resize, RAISR 'shipped', the trainer, EnhancePipeline,
     # the program's spans, compat
-    e2e["resize"] = resize_phase(rng, card, device)
+    (e2e["resize"], errs["resize_sep"], times["resize_sep"],
+     launches["resize_sep"]) = resize_phase(rng, card, device)
     e2e["raisr_shipped"] = shipped_phase(device)
     e2e["raisr_train"] = trainer_phase(card, device)
     e2e["enhance_pipeline"] = pipeline_phase(rng, card, device)

@@ -60,6 +60,7 @@ LAUNCHES = {
     "me_exact": 0,
     "me_fast_round": 0,
     "me_fast_median": 0,
+    "resize_sep": 0,
 }
 
 _VP = ctypes.c_void_p
@@ -98,6 +99,10 @@ _SIGNATURES = {
     "ocvk_me_fast_round": [_VP] * 6 + [_I] * 6 + [_VP],
     # dy_in, dx_in, dy_out, dx_out, flow, nimg, h, w, stream
     "ocvk_me_fast_median": [_VP] * 5 + [_I] * 3 + [_VP],
+    # x, out, row_idx, row_w, col_idx, col_w, nimg, h_in, w_in, h_out, w_out,
+    # nch, taps, in_u8, out_u8, tile_h, tile_w, span_h, pitch, vec_in, clamp,
+    # clamp_hi, stream
+    "ocvk_resize_sep": [_VP] * 6 + [_I] * 15 + [ctypes.c_float] + [_VP],
 }
 
 _lib: ctypes.CDLL | None = None
