@@ -6,10 +6,11 @@ Every part is found by the name ``BENCHMARK.json`` gives it, so that a
 later change adds a configuration, a traffic mix or a metric as new files:
 
 - ``configs/<config>.json`` (the settings as run) and ``configs/<config>.py``
-  (``build``, ``flatten``, ``reference``, ``control``, ``out_pixels``,
-  ``counts``, ``compare``);
-- ``traffic/<traffic>.json`` (read by ``common/traffic.py``) and the
-  driver of its window that it names, ``loops/<loop>.py``;
+  (``build``, ``flatten``, ``reference``, ``control``, ``plant``,
+  ``out_pixels``, ``counts``, ``compare``);
+- ``traffic/<traffic>.json`` (read by ``common/traffic.py``), the driver
+  of its window that it names, ``loops/<loop>.py``, and the content of its
+  items, ``content/<content>.py`` (found by ``common/modules.py``);
 - ``metrics/<metric>.py`` (``read(run) -> float | None``; None leaves the
   metric out of the line).
 """
@@ -17,7 +18,6 @@ later change adds a configuration, a traffic mix or a metric as new files:
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
 import json
 import os
 import time
@@ -26,9 +26,9 @@ from typing import Callable, Optional
 import torch
 
 from benchmark_torch.common import traffic as tr
+from benchmark_torch.common.modules import BENCH_DIR, load_module
 from benchmark_torch.common.trace import Spans, Trace, read_profile
 
-BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # a traced run measures at most this long: reading the profiler's events
 # takes about 10 s per traced second in the batch cells, and a run has to
 # end within 360 s
@@ -39,15 +39,6 @@ ROOT = os.path.dirname(BENCH_DIR)
 def load_benchmark(root: str = ROOT) -> dict:
     with open(os.path.join(root, "BENCHMARK.json")) as f:
         return json.load(f)
-
-
-def _load_module(path: str, name: str):
-    if not os.path.isfile(path):
-        raise FileNotFoundError(path)
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _load_json(path: str) -> dict:
@@ -87,8 +78,8 @@ def assemble(bench: dict, w: dict, rehearse: bool = False) -> Cell:
     name = w["name"]
     conf = next(c for c in bench["configs"] if c["name"] == w["config"])
     spec = _load_json(os.path.join(ROOT, conf["file"]))
-    module = _load_module(os.path.join(BENCH_DIR, "configs", f"{w['config']}.py"),
-                          f"benchmark_torch.configs.{w['config']}")
+    module = load_module(os.path.join(BENCH_DIR, "configs", f"{w['config']}.py"),
+                         f"benchmark_torch.configs.{w['config']}")
     mix = _load_json(os.path.join(BENCH_DIR, "traffic", f"{w['traffic']}.json"))
     if rehearse:
         spec = {**spec, **spec.get("rehearsal", {})}
@@ -100,13 +91,13 @@ def assemble(bench: dict, w: dict, rehearse: bool = False) -> Cell:
 
 def load_loop(loop: str) -> Callable:
     """``run`` of ``loops/<loop>.py``, the driver of a window."""
-    return _load_module(os.path.join(BENCH_DIR, "loops", f"{loop}.py"),
-                        f"benchmark_torch.loops.{loop}").run
+    return load_module(os.path.join(BENCH_DIR, "loops", f"{loop}.py"),
+                       f"benchmark_torch.loops.{loop}").run
 
 
 def load_reader(metric: str) -> Callable:
     path = os.path.join(BENCH_DIR, "metrics", f"{metric}.py")
-    return _load_module(path, "benchmark_torch.metrics." + metric.replace(".", "_")).read
+    return load_module(path, "benchmark_torch.metrics." + metric.replace(".", "_")).read
 
 
 @dataclasses.dataclass
@@ -136,11 +127,14 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device, t_star
              entry: Optional[Callable] = None, rate_hz: Optional[float] = None):
     """Set up, measure for ``seconds``, then compare. Returns (the Run, the
     compared numbers {name: (value, limit)}).
-    ``entry`` replaces the program's (the control); ``rate_hz`` the open
-    loop's rate (0: back to back)."""
+    ``entry`` replaces the program's (the control, which takes a batch: a
+    mix of batch 0 hands it each item as a batch of one); ``rate_hz`` the
+    open loop's rate (0: back to back)."""
     spec, mix, cfg = cell.spec, cell.mix, cell.config
     if entry is None:
         entry = cfg.build(spec, device)
+    elif mix["batch"] == 0:
+        entry = _one_item(entry)
     pool = tr.make_inputs(mix, seed, device)
     loop = load_loop(mix["loop"])
     tr.warm_up(entry, cfg.flatten, pool, mix, device, Spans(False))
@@ -181,15 +175,26 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device, t_star
     return run, check(cell, kept, device)
 
 
+def _one_item(batched: Callable) -> Callable:
+    """``batched`` called on one item: the item as a batch of one, and every
+    tensor of the result back to its one item."""
+    def first(out):
+        if isinstance(out, torch.Tensor):
+            return out[0]
+        return type(out)(first(o) for o in out)
+    return lambda x: first(batched(x[None]))
+
+
 def check(cell: Cell, kept: list, device) -> dict:
     """The comparison with the plain reference, once the window has closed:
     the reference runs on each kept call's inputs. {name: (worst value over
-    the kept calls, limit)}."""
+    the kept calls, limit)}. A mix of batch 0 sends one item a call, which
+    the reference takes as a batch of one."""
     spec, cfg = cell.spec, cell.config
+    one = cell.mix["batch"] == 0
     worst: dict = {}
     for x, outs in kept:
         x = x if isinstance(x, torch.Tensor) else torch.from_numpy(x).to(device)
-        one = x.ndim == 2
         prog = [torch.as_tensor(o).to(device) for o in outs]
         prog = [p[None] for p in prog] if one else prog
         for name, v in cfg.compare(spec, prog, cfg.reference(spec, x[None] if one else x)).items():

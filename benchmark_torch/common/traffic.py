@@ -9,15 +9,18 @@ seconds, seed, device, spans, **kw) -> Window``):
   1 / ``rate_hz`` s, on schedule whatever came before, in bursts of
   ``burst`` frames at that mean rate, 1 by default; a late frame starts as
   soon as the one before it has its result);
-- ``frame``: [h, w] of the uint8 gray frames;
-- ``batch``: frames a call ([batch, h, w]); 0 sends [h, w] frames one at a time;
+- ``content``: what an item holds, ``benchmark_torch/content/<content>.py``
+  (``make`` and ``PLANES``, the [h, w] planes of one item); "lenna", single
+  frames, where the mix names none;
+- ``frame``: [h, w] of the uint8 gray planes;
+- ``batch``: items a call ([batch, *item]); 0 sends the items one at a time;
 - ``io``: "device" (the inputs live on the card and the outputs stay
   there) or "host" (numpy frames in host memory; each call's input is
   copied to the card inside the window, and its main output comes back to
   host memory before the call counts as complete);
-- ``pool_bytes`` or ``pool_frames``: distinct frames drawn from the seed,
-  used in turn (a pool of several times the L2's 50 MB finds every call's
-  input cold, as new images would);
+- ``pool_bytes`` (every plane counted) or ``pool_frames`` (items): distinct
+  items drawn from the seed, used in turn (a pool of several times the L2's
+  50 MB finds every call's input cold, as new images would);
 - ``warmup``: calls before the window; ``sample``: how many calls
   (frames) of the window a seeded reservoir keeps for the comparison;
 - ``rehearsal``: keys replaced in the CPU rehearsal.
@@ -31,7 +34,8 @@ from typing import Callable, List
 
 import torch
 
-from benchmark_torch.common.content import generator, lenna_frames
+from benchmark_torch.common.content import generator
+from benchmark_torch.common.modules import load_content
 from benchmark_torch.common.trace import Spans
 
 
@@ -69,18 +73,19 @@ class Reservoir:
 
 
 def make_inputs(mix: dict, seed: int, device) -> list:
-    """The pool: uint8 tensors [batch, h, w] ([h, w] for batch 0) on the
+    """The pool: uint8 tensors [batch, *item] ([*item] for batch 0) on the
     card for "device" io, numpy arrays for "host" io."""
+    content = load_content(mix.get("content", "lenna"))
     h, w = mix["frame"]
     per_call = max(mix["batch"], 1)
     if "pool_frames" in mix:
         n_calls = -(-mix["pool_frames"] // per_call)
     else:
-        n_calls = -(-mix["pool_bytes"] // (per_call * h * w))
+        n_calls = -(-mix["pool_bytes"] // (per_call * content.PLANES * h * w))
     gen = generator(seed, device)
     pool = []
     for _ in range(n_calls):
-        x = lenna_frames(gen, per_call, h, w, device)
+        x = content.make(gen, per_call, h, w, device)
         x = x if mix["batch"] else x[0]
         pool.append(x.cpu().numpy() if mix["io"] == "host" else x.contiguous())
     return pool

@@ -50,11 +50,18 @@ def reference(spec: dict, x: torch.Tensor, **precision) -> list:
 
 
 def control(spec: dict, device):
-    """The reference in the precision below the stated one, in the program's place."""
-    def call(x):
-        out = reference(spec, x[None] if x.ndim == 2 else x, **CONTROL)[0]
-        return out[0] if x.ndim == 2 else out
-    return call
+    """The reference in the precision below the stated one, in the program's
+    place, on a batch."""
+    return lambda x: reference(spec, x, **CONTROL)[0]
+
+
+def plant(monkeypatch, broken) -> None:
+    """Route the program's output through ``broken`` where it is produced:
+    ``RaisrModel.upsample``, the entry ``build`` returns."""
+    from oclcomputervision_tpu_torch.models import RaisrModel
+
+    upsample = RaisrModel.upsample
+    monkeypatch.setattr(RaisrModel, "upsample", lambda self, x: broken(upsample(self, x)))
 
 
 def out_pixels(spec: dict, frame_hw) -> int:

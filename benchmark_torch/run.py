@@ -9,7 +9,9 @@ The last line of standard output is one JSON object: ``correct``,
 with ``--trace 1`` its per-layer ones), ``device`` and, traced,
 ``breakdown``; ``checks`` comes last, each compared number beside its
 limit, and the same numbers end standard error. Without a CUDA card (or
-with fewer than the cell asks for) it exits 2 and prints no result.
+with fewer than the cell asks for) it exits 2 and prints no result; with
+JAX or the JAX package loaded in the process once the window has closed, it
+names them on standard error, exits 3 and prints no result.
 
 ``--rehearse`` runs the same control flow on the CPU at the tiny sizes of
 the files' ``rehearsal`` keys, with the program's plain versions; its line
@@ -34,6 +36,9 @@ BUILD = os.path.join(ROOT, "build")
 # build/ocv_torch_kernels, where kernels/_build.py puts it)
 CACHES = {"TRITON_CACHE_DIR": "triton_cache", "TORCH_EXTENSIONS_DIR": "torch_extensions",
           "CUDA_CACHE_PATH": "cuda_cache"}
+# top-level modules that no run may hold: JAX and the JAX package the port
+# was made from (whole names: the port's own begins with the latter's)
+BARRED = frozenset({"jax", "jaxlib", "flax", "oclcomputervision_tpu"})
 
 
 def parse(argv):
@@ -75,6 +80,12 @@ def result_line(cell, run, checks, traced: bool, rehearse: bool) -> dict:
     return line
 
 
+def barred_modules() -> list:
+    """The barred top-level names among the modules this process holds."""
+    held = {name.split(".")[0] for name, mod in list(sys.modules.items()) if mod is not None}
+    return sorted(held & BARRED)
+
+
 def main(argv=None) -> int:
     args = parse(argv)
     for var, sub in CACHES.items():
@@ -98,6 +109,11 @@ def main(argv=None) -> int:
     traced = bool(args.trace)
     run, checks = run_cell(cell, args.seed, args.seconds, traced, device, T_START)
     line = result_line(cell, run, checks, traced, args.rehearse)
+    barred = barred_modules()
+    if barred:
+        print(f"loaded in the run's process once the window closed: {', '.join(barred)}; "
+              "no result", file=sys.stderr)
+        return 3
     for name, (v, lim) in checks.items():
         print(f"check {name} {v!r} limit {lim!r}", file=sys.stderr)
     print(json.dumps(line), flush=True)
