@@ -13,6 +13,14 @@ Port of ``oclcomputervision_tpu/ops/motion.py`` with its Pallas paths
   (``median_filter_flow``), seed upscaling (``upscale_mv``), subpixel rounds
   (``refine_flow_subpixel``) and the hybrid fast + seeded-exact schedule.
 
+Under a profiler a pyramid call is the span ``ocv.motion`` of
+``utils.tracing``, with its stages inside: ``ocv.pyramid`` (both Gaussian
+pyramids), ``ocv.motion.exact`` (an exact search; a refinement's bound
+sizing and clip with it), ``ocv.motion.fast`` (the fast iteration with its
+seed-base gather), ``ocv.motion.median`` (each ``median_filter_flow``),
+``ocv.motion.subpixel`` (each subpixel fit) and ``ocv.motion.upscale``
+(each ``upscale_mv``).
+
 Numpy inputs run on the card unless ``device="cpu"`` is passed; a torch
 tensor runs on its own device (the CUDA kernels for a CUDA tensor, their
 plain versions for a CPU tensor). Frames are uint8 [H, W] or batch-first
@@ -44,6 +52,7 @@ from oclcomputervision_tpu_torch.kernels import motion as kmotion
 from oclcomputervision_tpu_torch.ops._layout import guard_batch_first
 from oclcomputervision_tpu_torch.ops.pyramid import gaussian_pyramid
 from oclcomputervision_tpu_torch.oracle.motion import me_steps
+from oclcomputervision_tpu_torch.utils import tracing
 
 SEED_BOUND_QUANTA = (8, 12, 16, 20, 24, 32)
 
@@ -456,12 +465,13 @@ def estimate_motion_pyramid(
     from that flow ({8..32}) and which the flow is clipped to. 'exact'
     forces the same refinement passes for any method; 'none' disables them.
     """
-    g0, g1, single = _frames(gray0, gray1, device, "estimate_motion_pyramid")
-    flows = _pyramid(
-        g0, g1, levels, search_size, patch_size, seed_mode, method, smooth, warp_bound,
-        seed_bound, subpixel, refine,
-    )
-    return [f[0] for f in flows] if single else flows
+    with tracing.span("ocv.motion"):
+        g0, g1, single = _frames(gray0, gray1, device, "estimate_motion_pyramid")
+        flows = _pyramid(
+            g0, g1, levels, search_size, patch_size, seed_mode, method, smooth, warp_bound,
+            seed_bound, subpixel, refine,
+        )
+        return [f[0] for f in flows] if single else flows
 
 
 def _pyramid(
@@ -472,8 +482,9 @@ def _pyramid(
     ``stages``."""
     if refine not in ("auto", "exact", "none"):
         raise ValueError(f"unknown refine mode {refine!r}")
-    pyr0 = gaussian_pyramid(g0, 2, levels, batched=True)
-    pyr1 = gaussian_pyramid(g1, 2, levels, batched=True)
+    with tracing.span("ocv.pyramid"):
+        pyr0 = gaussian_pyramid(g0, 2, levels, batched=True)
+        pyr1 = gaussian_pyramid(g1, 2, levels, batched=True)
     # 'auto' needs >= 2 levels: with one level the "coarsest" IS the full
     # frame, and an exact search there is not what a fast call asked for
     do_refine = refine == "exact" or (refine == "auto" and method == "fast" and levels > 1)
@@ -483,28 +494,35 @@ def _pyramid(
     for lv in range(levels):
         p0, p1 = pyr0[lv].contiguous(), pyr1[lv].contiguous()
         lv_method = "exact" if do_refine and method == "fast" and lv == 0 else method
-        mv = _estimate(
-            p0, p1, seed, search_size, patch_size, seed_mode, lv_method, "sad", warp_bound,
-            seed_bound, stages,
-        )
+        with tracing.span(f"ocv.motion.{lv_method}"):
+            mv = _estimate(
+                p0, p1, seed, search_size, patch_size, seed_mode, lv_method, "sad", warp_bound,
+                seed_bound, stages,
+            )
         if do_refine and lv > 0:
             # the seed is our own intermediate: size the bound from it,
             # clip the outlier tail to it and pass the same bound down, so
             # the pass never saturates and never warns
-            rs = median_filter_flow(mv, sk)
-            rb = _quantum(_base_max(rs))
-            rs = torch.clamp(rs, -float(rb), float(rb))
-            mv = _estimate(
-                p0, p1, rs, search_size, patch_size, "fixed", "exact", "sad", warp_bound, rb,
-                stages,
-            )
+            with tracing.span("ocv.motion.median"):
+                rs = median_filter_flow(mv, sk)
+            with tracing.span("ocv.motion.exact"):
+                rb = _quantum(_base_max(rs))
+                rs = torch.clamp(rs, -float(rb), float(rb))
+                mv = _estimate(
+                    p0, p1, rs, search_size, patch_size, "fixed", "exact", "sad", warp_bound, rb,
+                    stages,
+                )
         if subpixel > 0:
             for _ in range(subpixel):
-                mv = _refine_subpixel(p0, p1, mv, patch_size, "sad")
-                mv = median_filter_flow(mv, sk)
+                with tracing.span("ocv.motion.subpixel"):
+                    mv = _refine_subpixel(p0, p1, mv, patch_size, "sad")
+                with tracing.span("ocv.motion.median"):
+                    mv = median_filter_flow(mv, sk)
         elif smooth > 0:
-            mv = median_filter_flow(mv, smooth)
+            with tracing.span("ocv.motion.median"):
+                mv = median_filter_flow(mv, smooth)
         flows.append(mv)
         if lv + 1 < levels:
-            seed = upscale_mv(mv, 2, mode=seed_mode)
+            with tracing.span("ocv.motion.upscale"):
+                seed = upscale_mv(mv, 2, mode=seed_mode)
     return flows

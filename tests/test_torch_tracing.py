@@ -1,5 +1,6 @@
 """PyTorch port: ``utils.tracing`` (the program's stage spans and ``syncs``
-counter) and ``utils.profiling.idle_share``, on the CPU."""
+counter, in the enhance pipeline, RAISR and the motion pyramid) and
+``utils.profiling.idle_share``, on the CPU."""
 
 import time
 import warnings
@@ -10,6 +11,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from benchmark_torch.common.trace import read_profile
 from oclcomputervision_tpu_torch.models import EnhanceConfig, EnhancePipeline, RaisrModel
+from oclcomputervision_tpu_torch.ops import motion
 from oclcomputervision_tpu_torch.utils import tracing
 from oclcomputervision_tpu_torch.utils.config import RaisrConfig
 from oclcomputervision_tpu_torch.utils.profiling import idle_share
@@ -18,6 +20,12 @@ STAGES = ["ocv.equalize", "ocv.raisr", "ocv.resize", "ocv.pyramid"]
 RAISR_STAGES = ["ocv.raisr.in", "ocv.raisr.upscale", "ocv.raisr.hash", "ocv.raisr.apply",
                 "ocv.raisr.out"]
 SYNC = tracing.SYNC_WARNING + " (Triggered internally at CUDAFunctions.h:120.)"
+# the hybrid motion pyramid: 3 levels, 2 subpixel rounds each
+HYBRID = {"levels": 3, "method": "fast", "smooth": 9, "subpixel": 2}
+ROUNDS = ["ocv.motion.subpixel", "ocv.motion.median"] * HYBRID["subpixel"]
+REFINED = ["ocv.motion.fast", "ocv.motion.median", "ocv.motion.exact", *ROUNDS]
+MOTION_STAGES = ["ocv.pyramid", "ocv.motion.exact", *ROUNDS, "ocv.motion.upscale", *REFINED,
+                 "ocv.motion.upscale", *REFINED]
 
 
 @pytest.fixture(scope="module")
@@ -32,6 +40,16 @@ def pipe():
 def frames():
     g = torch.Generator().manual_seed(15)
     return torch.randint(0, 256, (2, 24, 32), dtype=torch.uint8, generator=g)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    g = torch.Generator().manual_seed(18)
+    return torch.randint(0, 256, (2, 2, 24, 32), dtype=torch.uint8, generator=g)
+
+
+def _hybrid(pair):
+    return motion.estimate_motion_pyramid(pair[:, 0], pair[:, 1], **HYBRID)
 
 
 @pytest.fixture
@@ -117,6 +135,48 @@ def test_raisr_model_upsample_is_one_span_with_five_stages(pipe, frames):
     recs = tracing.records()
     assert recs[0].name == "ocv.raisr" and recs[0].parent is None
     assert _children(recs, 0) == RAISR_STAGES and len(recs) == 6
+
+
+def test_a_hybrid_motion_call_is_one_span_with_its_stages_in_order(pair):
+    with _cpu_profile():
+        _hybrid(pair)
+    recs = tracing.records()
+    assert recs[0].name == "ocv.motion" and recs[0].parent is None
+    assert _children(recs, 0) == MOTION_STAGES
+    assert len(recs) == 1 + len(MOTION_STAGES)  # no stage holds another
+    for r in recs[1:]:
+        assert recs[0].t0 <= r.t0 <= r.t1 <= recs[0].t1
+
+
+def test_motion_flows_are_bit_equal_with_and_without_the_profiler(pair):
+    plain = _hybrid(pair)
+    with _cpu_profile():
+        flows = _hybrid(pair)
+    assert tracing.records()
+    assert len(flows) == len(plain) == HYBRID["levels"]
+    assert all(torch.equal(a, b) for a, b in zip(flows, plain))
+
+
+def test_motion_syncs_land_on_the_exact_searches_and_the_upscales(pair, monkeypatch):
+    """On the card a tensor read back to the host (``float``) and a numpy
+    array copied to it each synchronise; here each gives the sync warning
+    the card's debug mode would."""
+    def syncing(fn):
+        def call(*args):
+            warnings.warn(SYNC)
+            return fn(*args)
+        return call
+
+    monkeypatch.setattr(torch.Tensor, "__float__", syncing(torch.Tensor.__float__))
+    monkeypatch.setattr(torch, "from_numpy", syncing(torch.from_numpy))
+    with _cpu_profile():
+        _hybrid(pair)
+    syncs = {}
+    for r in tracing.records():
+        syncs[r.name] = syncs.get(r.name, 0) + len(r.syncs)
+    # two read-backs of each refined level's bound; 8 tap uploads a seed upscale
+    assert {n: k for n, k in syncs.items() if k} == {"ocv.motion.exact": 4,
+                                                     "ocv.motion.upscale": 16}
 
 
 def test_two_calls_get_two_call_ids_and_reset_empties(pipe, frames, every_call):
