@@ -51,10 +51,16 @@ failure raises, and the script exits non-zero without the result line):
    put column w - 2 on either side of its tile and warp edges, on frames
    narrower and shorter than a tile and a patch, and SSD on frames of 0
    against 255; the median kernel alone on the same shapes and on frames 1
-   pixel wide or tall, states in +-6 and +-2^20; and phase 8's bands of a
-   2160x3840 pair: the fast iteration on each rank's rows inside the image
-   with 17 of each neighbour's (557 and 574 rows), the exact search on its
-   rows with 10 of each neighbour's (560 rows, zeros beyond the image);
+   pixel wide or tall, states in +-6 and +-2^20; the flow median kernel
+   (compiled k 3, 5, 7, 9 and the generic form at 1 and 11) on tie-heavy
+   flows (integers plus offsets in [-0.5, 0.5], -0.0 and +0.0) and random
+   ones at the hybrid pyramid's three level shapes, 1-pixel-wide and -tall
+   flows, odd widths and a flow one float into its allocation, each equal
+   to the plain version (unfold and median) on the card; and phase 8's
+   bands of a 2160x3840 pair: the fast iteration on each rank's rows
+   inside the image with 17 of each neighbour's (557 and 574 rows), the
+   exact search on its rows with 10 of each neighbour's (560 rows, zeros
+   beyond the image);
 3d. the RAISR kernels at configs outside the compiled forms' domain (x2
    with filter_len 7, gauss_len 7 and 5 strength quantizers; x2 with
    filter_len 13; x5; x2 with filter_len 17 and 5 strength quantizers,
@@ -92,9 +98,10 @@ failure raises, and the script exits non-zero without the result line):
    the Middlebury pair (frame10/frame11, 480x640), 3 levels, smooth 9: the
    exact and the hybrid (fast + seeded exact) schedules, both again with 12
    subpixel rounds, and both on a batch of 4 noisy pairs; each path's
-   kernels' launch counts must rise during it, its flows must equal the plain
-   path's, the pyramid levels must be within one level of the numpy oracle's
-   and the coarsest level's exact search must equal the numpy oracle's;
+   kernels' launch counts (the flow median's among them) must rise during
+   it, its flows must equal the plain path's, the pyramid levels must be
+   within one level of the numpy oracle's and the coarsest level's exact
+   search must equal the numpy oracle's;
 5. quality on held-out frame11: RAISR PSNR above bilinear, and above 35 dB
    against the numpy oracle;
 5c. motion quality: end-point error of the four schedules' finest level
@@ -135,8 +142,13 @@ failure raises, and the script exits non-zero without the result line):
    through the kernels and the plain versions, the pyramids' profiles, the
    time of ``median_filter_flow`` and ``upscale_mv``, each kernel's own
    time at the 4-pair finest level beside its bound (also with L2 flushed
-   before every call), and the exact search kernel unseeded on 8 pairs
-   beside its own bound;
+   before every call), the exact search kernel unseeded on 8 pairs
+   beside its own bound, and the flow median kernel alone at 4 x 480 x 640
+   x 2, k = 9, on the flows the hybrid subpixel pyramid hands its finest
+   median and on random ones, beside its bytes bound and its min/max bound
+   (its networks' min and max at the card's compare rate), the plain
+   version and one unfold + median call over all planes (the library
+   yardstick), and the generic form at k = 11;
 7. resize (``ops.resize_uint8``, ``ops.resize``; the resize_sep kernel):
    bilinear and bicubic under the three mappings on gray lenna, RGB lenna
    and a 3x256x320 stack, up and down, uint8 and f32 out, float input, the
@@ -343,6 +355,11 @@ GENERIC_TIMED = {"upscale_planes_generic": "x5",
 GLOBAL_KERNELS = ("hist256", "apply_lut")
 LOCAL_KERNELS = ("hist_tiles", "blend_blocks")
 ME_KERNELS = ("me_exact", "me_fast_round", "me_fast_median")
+FLOW_MEDIAN_KERNELS = ("flow_median", "flow_median_generic")
+# compare, min and max results a second: 64 a clock on each of the 132 SMs
+# (CUDA C++ Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0) at the 1.98 GHz boost clock (nvidia-smi clocks.max.sm)
+MINMAX_PER_S = 132 * 64 * 1.98e9
 
 KERNELS = {
     # name -> (source, replaced TPU kernel: file:line of its pl.pallas_call)
@@ -411,6 +428,16 @@ KERNELS = {
     "resize_sep": (
         "oclcomputervision_tpu_torch/kernels/csrc/resize_sep.cu",
         "none (oclcomputervision_tpu/ops/interpolation.py is plain jnp)",
+    ),
+    # no TPU kernel: the JAX median is a jnp comparator network; these replace
+    # the port's unfold + median
+    "flow_median": (
+        "oclcomputervision_tpu_torch/kernels/csrc/flow_median.cu",
+        "none (oclcomputervision_tpu/ops/motion.py median_filter_flow is a jnp comparator network)",
+    ),
+    "flow_median_generic": (
+        "oclcomputervision_tpu_torch/kernels/csrc/flow_median.cu",
+        "none (oclcomputervision_tpu/ops/motion.py median_filter_flow is a jnp comparator network)",
     ),
 }
 
@@ -1633,6 +1660,22 @@ def noisy_pairs(rng, n: int):
     return noisy(load_gray("frame10.png")), noisy(load_gray("frame11.png"))
 
 
+def tie_heavy_flow(rng, shape, device):
+    """A float32 [*shape, 2] flow like the subpixel rounds leave: integers in
+    [-6, 6], on 60 % of the vectors plus an offset from a few in [-0.5,
+    0.5], 10 % -0.0 and 5 % +0.0."""
+    import numpy as np
+    import torch
+
+    shape = (*shape, 2)
+    f = rng.integers(-6, 7, shape).astype(np.float32)
+    offs = np.array([-0.5, -0.25, 0.0, 0.125, 0.3, 0.5], np.float32)
+    f += rng.choice(offs, shape) * (rng.random(shape) < 0.6)
+    f[rng.random(shape) < 0.1] = -0.0
+    f[rng.random(shape) < 0.05] = 0.0
+    return torch.from_numpy(f.astype(np.float32)).to(device)
+
+
 def me_kernel_vs_plain(rng, device):
     """Phase 3c: each motion kernel and its plain version on the same inputs;
     the searches are integer, so they must be equal."""
@@ -1644,7 +1687,7 @@ def me_kernel_vs_plain(rng, device):
     from oclcomputervision_tpu_torch.kernels import motion as km
     from oclcomputervision_tpu_torch.ops import motion as om
 
-    errs = {k: 0.0 for k in ME_KERNELS}
+    errs = {k: 0.0 for k in ME_KERNELS + FLOW_MEDIAN_KERNELS}
 
     def check(names, tag, got, want):
         torch.cuda.synchronize()
@@ -1761,6 +1804,22 @@ def me_kernel_vs_plain(rng, device):
     errs["me_fast_median"] = max(errs["me_fast_median"], worst)
     print(f"me_fast_median alone on {len(median_shapes)} shapes from {min(median_shapes)} to "
           f"{max(median_shapes)}, states +-6 and +-2^20: max|kernel - plain| = {worst}")
+    # the flow median: the hybrid pyramid's level shapes, 1-pixel frames, odd
+    # widths; a flow one float into its allocation (the kernel asks for no
+    # alignment); equal to the plain version but for the sign of a zero
+    for n, h, w in ((4, 480, 640), (4, 240, 320), (4, 120, 160), (1, 1, 1), (2, 1, 131),
+                    (1, 129, 1), (3, 37, 101), (2, 17, 130)):
+        for content in ("tie-heavy", "random"):
+            if content == "random":
+                flow = torch.randn((n, h, w, 2), generator=gen, device=device)
+            else:
+                flow = tie_heavy_flow(rng, (n, h, w), device)
+            if w % 2:
+                flow = torch.cat([flow.new_zeros(1), flow.reshape(-1)])[1:].reshape(flow.shape)
+            for k in (1, 3, 5, 7, 9, 11):
+                name = "flow_median" if k in km.FLOW_MEDIAN_COMPILED else "flow_median_generic"
+                check((name,), f"{content} k={k}", km.flow_median_kernel(flow, k),
+                      km.flow_median(flow, k))
     # far seeds (+-200 on about 2 % of the pixels, +-3 elsewhere) and no
     # bound: the blocks that hold one cannot stage their frame-1 window and
     # read frame 1 from device memory, the others stage theirs
@@ -1830,7 +1889,7 @@ def me_main_path(rng, device):
         launches = dict(_build.LAUNCHES)
         print(f"pyramid {tag}: {a0.shape} uint8 x2 -> "
               f"{[tuple(f.shape) for f in flows]} {flows[-1].dtype}, "
-              f"launches { {k: launches[k] for k in ME_KERNELS} }")
+              f"launches { {k: launches[k] for k in ME_KERNELS + FLOW_MEDIAN_KERNELS} }")
         missing = [k for k in kernels if launches[k] < 1]
         if missing:
             raise AssertionError(f"pyramid {tag} launched no {missing} kernel")
@@ -1879,7 +1938,7 @@ def me_main_path(rng, device):
           f"by at most {np.abs(l0.astype(int) - g0).max()}")
     results, rounded, launches = {}, {}, {}
     for name, kw in ME_SCHEDULES.items():
-        kernels = ME_KERNELS if kw["method"] == "fast" else ("me_exact",)
+        kernels = (ME_KERNELS if kw["method"] == "fast" else ("me_exact",)) + ("flow_median",)
         flows, launches[name] = drive(f"{name}, libpng luma", kernels, l0, l1, **kw)
         results[name] = epe(flows[-1].cpu().numpy(), gt)
         integer = bool((flows[-1] == flows[-1].round()).all())
@@ -1891,7 +1950,7 @@ def me_main_path(rng, device):
     b0, b1 = noisy_pairs(rng, ME_PYRAMID_BATCH)
     for name in ("exact", "hybrid"):
         kw = ME_SCHEDULES[name]
-        kernels = ME_KERNELS if kw["method"] == "fast" else ("me_exact",)
+        kernels = (ME_KERNELS if kw["method"] == "fast" else ("me_exact",)) + ("flow_median",)
         flows, launches[f"batched {name}"] = drive(f"batched {name}", kernels, b0, b1, **kw)
         if name == "exact" and flows[-1].abs().max().item() > bound:
             raise AssertionError(f"exact pyramid flow beyond exact_flow_bound = {bound}")
@@ -1905,9 +1964,10 @@ def me_main_path(rng, device):
     off = {k: v for k, v in results.items() if not abs(v - EPE_TARGETS[k]) <= EPE_TOL}
     if off or not all(v < zero for v in (*results.values(), *rounded.values())):
         raise AssertionError(f"EPE off its target: {off} (zero flow {zero})")
-    # the hybrid schedule on the 4-pair batch launches all three kernels
+    # the hybrid schedule on the 4-pair batch launches all four kernels
     results.update({f"{k}, rounded luma": v for k, v in rounded.items()})
-    return {k: launches["batched hybrid"][k] for k in ME_KERNELS}, results, (b0, b1)
+    return ({k: launches["batched hybrid"][k] for k in ME_KERNELS + FLOW_MEDIAN_KERNELS},
+            results, (b0, b1))
 
 
 def wall_ms(fn, *args, warmup: int = 2, iters: int = 5) -> float:
@@ -2051,7 +2111,76 @@ def me_timing(rng, pyramid_batch, card, device):
     print(f"[{card}] me_exact at {tuple(t0.shape)} unseeded: kernel {ms:.4f} ms, "
           f"{t0.numel() / 1e6 / ms * 1e3:.2f} MP/s, bound {bms:.4f} ms ({by})")
     times["me_exact"].update(unseeded_ms=ms, unseeded_bound_ms=bms)
+    times.update(flow_median_timing(rng, b0, b1, card, device))
     return times, e2e
+
+
+def flow_median_timing(rng, b0, b1, card, device):
+    """Phase 6c's flow median: the kernel alone at 4 x 480 x 640 x 2, k =
+    ME_SMOOTH, on the flows the hybrid subpixel pyramid hands its finest
+    median (the last one) and on random ones, and the generic form at k = 11."""
+    import torch
+
+    from oclcomputervision_tpu_torch.kernels import motion as km
+    from oclcomputervision_tpu_torch.ops import motion as om
+    from oclcomputervision_tpu_torch.utils import cuda_time_ms
+
+    seen = []
+
+    def record(flow, k):
+        seen.append(flow)
+        return km.flow_median_kernel(flow, k)
+
+    stages = om.Stages(km.me_exact_kernel, km.me_fast_kernel, record)
+    om._pyramid(b0, b1, ME_LEVELS, *ME_GEOMETRY, "fixed", "fast", ME_SMOOTH, "auto", "auto",
+                ME_SUBPIXEL, "auto", stages)
+    flows = {"the pyramid's": seen[-1], "random": torch.randn_like(seen[-1])}
+    del seen
+
+    def library(flow, k):  # one unfold and one median over every plane
+        b, h, w, _ = flow.shape
+        pd = torch.nn.functional.pad(flow.movedim(-1, 1).reshape(-1, 1, h, w), (k // 2,) * 4,
+                                     mode="replicate")
+        return torch.nn.functional.unfold(pd, k).median(dim=1).values.reshape(
+            b, 2, h, w).movedim(1, -1)
+
+    times = {}
+    for name, k in (("flow_median", ME_SMOOTH), ("flow_median_generic", 11)):
+        rec = {}
+        for content, flow in flows.items():
+            got = km.flow_median_kernel(flow, k)
+            same = bool((got == library(flow, k)).all())
+            torch.cuda.synchronize()
+            if not same:
+                raise AssertionError(f"{name} k={k} on {content} flows differs from unfold + median")
+            rec[content] = {"ms": kernel_ms(name, lambda: km.flow_median_kernel(flow, k)),
+                            "call_ms": cuda_time_ms(km.flow_median_kernel, flow, k),
+                            "plain_ms": cuda_time_ms(km.flow_median, flow, k, iters=3),
+                            "library_ms": cuda_time_ms(library, flow, k, iters=3)}
+        flow = flows["random"]
+        elems = flow.numel()  # outputs of both planes
+        by_bytes = 2 * flow.numel() * flow.element_size() / HBM_BYTES_PER_S * 1e3
+        minmax = km.flow_median_minmax(k) if k in km.FLOW_MEDIAN_COMPILED else None
+        by_minmax = None if minmax is None else minmax * elems / MINMAX_PER_S * 1e3
+        pyr = rec["the pyramid's"]
+        times[name] = {"k": k, "shape": list(flow.shape), "ms": pyr["ms"], "call_ms": pyr["call_ms"],
+                       "plain_ms": pyr["plain_ms"], "library_ms": pyr["library_ms"],
+                       "random": rec["random"], "bytes_bound_ms": by_bytes,
+                       "minmax_per_output": minmax, "minmax_bound_ms": by_minmax,
+                       "bound_ms": max(by_bytes, by_minmax or 0.0),
+                       "bound_by": "bytes" if by_minmax is None or by_bytes >= by_minmax
+                       else "min/max issue",
+                       "cold_l2_ms": kernel_ms(name, lambda: km.flow_median_kernel(flow, k),
+                                               cold_l2=True)}
+        for content, r in rec.items():
+            print(f"[{card}] {name} k={k} at {tuple(flow.shape)} on {content} flows: kernel "
+                  f"{r['ms']:.4f} ms (whole call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} "
+                  f"ms, library (one unfold + median) {r['library_ms']:.4f} ms")
+        print(f"[{card}] {name} k={k}: bound {by_bytes:.4f} ms by bytes"
+              + ("" if by_minmax is None else
+                 f", {by_minmax:.4f} ms by min/max ({minmax} a plane's output)")
+              + f"; {times[name]['cold_l2_ms']:.4f} ms with L2 flushed before each call")
+    return times
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@
 | ``me_exact.cu``        | ``motion.me_exact_kernel``               | ``me_pallas.me_exact_pallas`` and ``_seeded_impl`` |
 | ``me_fast_round.cu``, ``me_fast_median.cu`` | ``motion.me_fast_kernel`` (``fast_round_kernel``: one round) | ``me_fast_pallas.me_fast_residual_pallas`` |
 | ``resize_sep.cu``      | ``resize.resize_sep`` (through ``ops.interpolation._resize_plane``) | none: the JAX resize is plain jnp |
+| ``flow_median.cu``     | ``motion.flow_median_kernel`` (through ``ops.motion.median_filter_flow``) | none: the JAX median is a jnp comparator network |
 
 A wrapper takes its plain version for a CPU tensor and launches its kernel
 for a CUDA tensor, counting the launch in ``_build.LAUNCHES`` (the resize

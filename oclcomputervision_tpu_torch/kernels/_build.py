@@ -61,6 +61,9 @@ LAUNCHES = {
     "me_fast_round": 0,
     "me_fast_median": 0,
     "resize_sep": 0,
+    # the flow's k x k median: compiled k, and any other odd k
+    "flow_median": 0,
+    "flow_median_generic": 0,
 }
 
 _VP = ctypes.c_void_p
@@ -103,6 +106,9 @@ _SIGNATURES = {
     # nch, taps, in_u8, out_u8, tile_h, tile_w, span_h, pitch, vec_in, clamp,
     # clamp_hi, stream
     "ocvk_resize_sep": [_VP] * 6 + [_I] * 15 + [ctypes.c_float] + [_VP],
+    # flow, out, nimg, h, w, k, stream
+    "ocvk_flow_median": [_VP] * 2 + [_I] * 4 + [_VP],
+    "ocvk_flow_median_generic": [_VP] * 2 + [_I] * 4 + [_VP],
 }
 
 _lib: ctypes.CDLL | None = None

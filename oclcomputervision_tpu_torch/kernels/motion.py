@@ -1,5 +1,5 @@
-"""Block-matching motion estimation kernels: the exact shrinking-step search
-and the fast (warp-based) iteration.
+"""Block-matching motion estimation kernels: the exact shrinking-step search,
+the fast (warp-based) iteration, and the k x k median of a flow.
 
 Ports of ``oclcomputervision_tpu/ops/pallas/me_pallas.py`` and
 ``me_fast_pallas.py``:
@@ -17,10 +17,17 @@ Ports of ``oclcomputervision_tpu/ops/pallas/me_pallas.py`` and
   ``me_fast_residual_pallas``: frame 0 and the (seed-base-warped) frame 1 ->
   the residual flow of ``ops/motion._fast_rounds``. An initial state turns
   the same rounds into the per-round gather of the full field.
+- ``flow_median`` (plain: ``F.unfold`` and ``Tensor.median``) /
+  ``flow_median_kernel`` (``csrc/flow_median.cu``, one launch for both
+  planes and the batch) replace no TPU kernel: the JAX package's
+  ``median_filter_flow`` is a jnp comparator network. [B, H, W, 2] float32
+  -> the k x k median of each plane, edges replicated.
 
-All arithmetic is integer, so each kernel equals its plain version, the JAX
-package's XLA twins and the numpy oracle bit for bit. Each wrapper takes the
-plain version for a CPU tensor and launches its kernels for a CUDA tensor.
+The searches' arithmetic is integer and a median selects, so each kernel
+equals its plain version, the JAX package's XLA twins and the numpy oracle
+bit for bit (the flow median up to the sign of a zero). Each wrapper takes
+the plain version for a CPU tensor and launches its kernels for a CUDA
+tensor.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from oclcomputervision_tpu_torch.kernels._build import launch, require_cuda_tensor
 from oclcomputervision_tpu_torch.kernels.histeq import MAX_GRID_YZ
@@ -41,6 +49,7 @@ ME_WINDOW_CAP = 32 * 1024  # shared-memory bytes a block's frame-1 window may ta
 FAST_MAX_PATCH = 31  # csrc/me_fast_round.cu: a warp's 32 columns hold the patch's reach
 INT_COSTS = ("sad", "ssd")  # the costs the kernels take
 FLOAT_COSTS = ("wsad_shipped", "wsad")  # exact search only, plain version only
+FLOW_MEDIAN_COMPILED = (3, 5, 7, 9)  # csrc/flow_median.cu's flow_median_kernel<K>; others: generic
 
 
 def gather_padded(img: torch.Tensor, yy: torch.Tensor, xx: torch.Tensor) -> torch.Tensor:
@@ -427,3 +436,108 @@ def me_fast_kernel(
         _launch_median(moved[0], moved[1], state, flow if r == len(steps) - 1 else None)
         dy, dx = state[0], state[1]
     return flow
+
+
+def flow_median(flow: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain version of the flow median: the k x k median of each plane of
+    a float32 [B, H, W, 2] flow, edges replicated, two planes at a time
+    (the unfolded window holds k * k copies)."""
+    b, h, w, _ = flow.shape
+    planes = flow.movedim(-1, 1).reshape(-1, 1, h, w)  # [2B, 1, H, W]
+    out = torch.empty_like(planes)
+    for i in range(0, planes.shape[0], 2):
+        pd = F.pad(planes[i : i + 2], (k // 2,) * 4, mode="replicate")
+        out[i : i + 2] = F.unfold(pd, k).median(dim=1).values.reshape(-1, 1, h, w)
+    return out.reshape(b, 2, h, w).movedim(1, -1).contiguous()
+
+
+def flow_median_kernel(flow: torch.Tensor, k: int) -> torch.Tensor:
+    """Wrapper: ``flow_median`` for a CPU tensor; for a CUDA tensor
+    (contiguous float32 [B, H, W, 2]) one launch of
+    ``flow_median_kernel<k>`` for k in FLOW_MEDIAN_COMPILED, else of
+    ``flow_median_generic_kernel``. k is odd; inputs are assumed finite."""
+    if k < 1 or k % 2 == 0:
+        raise ValueError(f"median kernel size must be odd, got {k}")
+    if flow.device.type == "cpu":
+        return flow_median(flow, k)
+    require_cuda_tensor(flow, "flow", torch.float32, 4)
+    b, h, w, planes = flow.shape
+    if planes != 2:
+        raise ValueError(f"flow must be [B, H, W, 2], got {tuple(flow.shape)}")
+    if k * k >= 2**31:
+        raise ValueError(f"median kernel size {k}: k * k must stay below 2^31")
+    _check_grid(b, h, w)
+    out = torch.empty_like(flow)
+    name = "flow_median" if k in FLOW_MEDIAN_COMPILED else "flow_median_generic"
+    launch(name, f"ocvk_{name}", flow.device, flow.data_ptr(), out.data_ptr(), b, h, w, k)
+    return out
+
+
+def _oe_merge(lo: int, hi: int, r: int, pairs: list) -> None:
+    """Batcher's odd-even merge of wires [lo, hi] (``csrc/flow_median.cu``'s
+    ``oe_merge``)."""
+    if 2 * r < hi - lo:
+        _oe_merge(lo, hi, 2 * r, pairs)
+        _oe_merge(lo + r, hi, 2 * r, pairs)
+        pairs.extend((i, i + r) for i in range(lo + r, hi - r, 2 * r))
+    else:
+        pairs.append((lo, lo + r))
+
+
+def oe_sort_pairs(n: int) -> list:
+    """The comparators (min to the first wire, max to the second) of
+    Batcher's odd-even mergesort of n wires (a power of two), in the order
+    of ``csrc/flow_median.cu``'s ``oe_sort``."""
+    def sort(lo, hi, pairs):
+        if hi > lo:
+            mid = lo + (hi - lo) // 2
+            sort(lo, mid, pairs)
+            sort(mid + 1, hi, pairs)
+            _oe_merge(lo, hi, 1, pairs)
+        return pairs
+
+    return sort(0, n - 1, [])
+
+
+def flow_median_minmax(k: int) -> float:
+    """Min and max instructions per output element and plane that
+    ``flow_median_kernel<k>`` keeps (k in FLOW_MEDIAN_COMPILED): its
+    networks on the 2 x 2 outputs' shared core and on each output's own
+    values, and the selection, once the +inf pads and the -inf / +inf ranks
+    are folded and every result no output reads is dropped."""
+    inf = float("inf")
+    nodes = []  # (operand, operand) of each min or max kept so far
+
+    def op(fn, a, b):  # a wire is a float constant or a node index
+        if isinstance(a, float) and isinstance(b, float):
+            return fn(a, b)
+        for c, x in ((a, b), (b, a)):
+            if isinstance(c, float):  # +-inf against a value folds
+                return x if fn(c, -c) == -c else c
+        nodes.append((a, b))
+        return len(nodes) - 1
+
+    def network(values):
+        n = 1 << (len(values) - 1).bit_length()
+        v = list(values) + [inf] * (n - len(values))
+        for a, b in oe_sort_pairs(n):
+            v[a], v[b] = op(min, v[a], v[b]), op(max, v[a], v[b])
+        return v
+
+    core, own, mid = (k - 1) ** 2, 2 * k - 1, k * k // 2
+    srt = network([("core", i) for i in range(core)])
+    band = [-inf if r < 0 else (srt[r] if r < core else inf) for r in range(mid - own, mid + 1)]
+    outs = []
+    for _ in range(4):
+        mine = network([("own", j) for j in range(own)])
+        m = band[own]
+        for i in range(1, own + 1):
+            m = op(min, m, op(max, band[i - 1], mine[own - i]))
+        outs.append(m)
+    live, stack = set(), [m for m in outs if isinstance(m, int)]
+    while stack:
+        i = stack.pop()
+        if i not in live:
+            live.add(i)
+            stack.extend(x for x in nodes[i] if isinstance(x, int))
+    return len(live) / 4

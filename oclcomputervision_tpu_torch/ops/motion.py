@@ -10,14 +10,18 @@ Port of ``oclcomputervision_tpu/ops/motion.py`` with its Pallas paths
   gather-warped once.
 - ``estimate_motion_pyramid``: the coarse-to-fine loop over
   ``ops.pyramid.gaussian_pyramid``, with median smoothing
-  (``median_filter_flow``), seed upscaling (``upscale_mv``), subpixel rounds
-  (``refine_flow_subpixel``) and the hybrid fast + seeded-exact schedule.
+  (``median_filter_flow``: the hand-written ``kernels.motion.flow_median_kernel``
+  for a CUDA tensor, the plain ``F.unfold`` and ``Tensor.median`` of
+  ``kernels.motion.flow_median`` for a CPU one), seed upscaling
+  (``upscale_mv``), subpixel rounds (``refine_flow_subpixel``) and the
+  hybrid fast + seeded-exact schedule.
 
 Under a profiler a pyramid call is the span ``ocv.motion`` of
 ``utils.tracing``, with its stages inside: ``ocv.pyramid`` (both Gaussian
 pyramids), ``ocv.motion.exact`` (an exact search; a refinement's bound
 sizing and clip with it), ``ocv.motion.fast`` (the fast iteration with its
-seed-base gather), ``ocv.motion.median`` (each ``median_filter_flow``),
+seed-base gather), ``ocv.motion.median`` (each ``median_filter_flow``: on
+the card one ``flow_median`` launch),
 ``ocv.motion.subpixel`` (each subpixel fit) and ``ocv.motion.upscale``
 (each ``upscale_mv``).
 
@@ -45,7 +49,6 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from oclcomputervision_tpu_torch._device import as_tensor
 from oclcomputervision_tpu_torch.kernels import motion as kmotion
@@ -58,16 +61,18 @@ SEED_BOUND_QUANTA = (8, 12, 16, 20, 24, 32)
 
 
 class Stages(NamedTuple):
-    """The two kernel stages the motion ops run."""
+    """The three kernel stages the motion ops run."""
 
     exact: Callable
     fast: Callable
+    median: Callable
 
 
 # the kernel wrappers (plain versions for CPU tensors, kernels for CUDA ones)
-KERNEL_STAGES = Stages(kmotion.me_exact_kernel, kmotion.me_fast_kernel)
+KERNEL_STAGES = Stages(kmotion.me_exact_kernel, kmotion.me_fast_kernel,
+                       kmotion.flow_median_kernel)
 # the plain PyTorch versions on any device (the kernels' reference on the card)
-PLAIN_STAGES = Stages(kmotion.me_exact, kmotion.me_fast)
+PLAIN_STAGES = Stages(kmotion.me_exact, kmotion.me_fast, kmotion.flow_median)
 
 
 def _frames(gray0, gray1, device, op: str):
@@ -357,24 +362,18 @@ def upscale_mv(mv, scale: int, mode: str = "shipped", *, device=None) -> torch.T
 
 def median_filter_flow(mv, k: int = 5, *, device=None) -> torch.Tensor:
     """k x k per-component median filter of a [H, W, 2] (or batched
-    [B, H, W, 2]) flow field, edges replicated.
+    [B, H, W, 2]) flow field, edges replicated, k odd.
 
-    The median of an odd number of finite values is unique, so selecting it
-    from the unfolded window equals the JAX package's comparator network.
-    Inputs are assumed finite.
+    A CUDA tensor runs the hand-written kernel (``csrc/flow_median.cu``,
+    one launch for both planes and the batch), a CPU tensor the plain
+    version (``F.unfold`` and ``Tensor.median``). The median of an odd
+    number of finite values is unique, so both equal the JAX package's
+    comparator network (where the median is a zero, the kernel may give it
+    the other sign). Inputs are assumed finite.
     """
     t = _flow(mv, device)
-    if k < 1 or k % 2 == 0:
-        raise ValueError(f"median kernel size must be odd, got {k}")
-    h, w = t.shape[-3:-1]
-    planes = t.movedim(-1, -3).reshape(-1, 1, h, w)  # [N, 1, H, W]
-    out = torch.empty_like(planes)
-    # two planes at a time: the unfolded window holds k*k copies
-    for i in range(0, planes.shape[0], 2):
-        pd = F.pad(planes[i : i + 2], (k // 2,) * 4, mode="replicate")
-        win = F.unfold(pd, k)  # [n, k*k, H*W]
-        out[i : i + 2] = win.median(dim=1).values.reshape(-1, 1, h, w)
-    return out.reshape(*t.shape[:-3], 2, h, w).movedim(-3, -1).contiguous()
+    out = kmotion.flow_median_kernel(t.reshape(-1, *t.shape[-3:]).contiguous(), k)
+    return out.reshape(t.shape)
 
 
 def _refine_subpixel(g0, g1, flow, patch_size: int, costfn: str) -> torch.Tensor:
@@ -504,7 +503,7 @@ def _pyramid(
             # clip the outlier tail to it and pass the same bound down, so
             # the pass never saturates and never warns
             with tracing.span("ocv.motion.median"):
-                rs = median_filter_flow(mv, sk)
+                rs = stages.median(mv, sk)
             with tracing.span("ocv.motion.exact"):
                 rb = _quantum(_base_max(rs))
                 rs = torch.clamp(rs, -float(rb), float(rb))
@@ -517,10 +516,10 @@ def _pyramid(
                 with tracing.span("ocv.motion.subpixel"):
                     mv = _refine_subpixel(p0, p1, mv, patch_size, "sad")
                 with tracing.span("ocv.motion.median"):
-                    mv = median_filter_flow(mv, sk)
+                    mv = stages.median(mv, sk)
         elif smooth > 0:
             with tracing.span("ocv.motion.median"):
-                mv = median_filter_flow(mv, smooth)
+                mv = stages.median(mv, smooth)
         flows.append(mv)
         if lv + 1 < levels:
             with tracing.span("ocv.motion.upscale"):

@@ -135,9 +135,9 @@ def test_wrappers_reject_tensors_on_other_devices():
 def test_kernel_build_inputs():
     names = sorted(os.path.basename(p) for p in _build._sources())
     assert names == [
-        "apply_lut.cu", "blend_blocks.cu", "errors.cu", "hist256.cu", "hist_common.cuh",
-        "hist_tiles.cu", "me_exact.cu", "me_fast_median.cu", "me_fast_round.cu",
-        "raisr_apply.cu", "raisr_apply_generic.cu", "raisr_apply_split.cu",
+        "apply_lut.cu", "blend_blocks.cu", "errors.cu", "flow_median.cu", "hist256.cu",
+        "hist_common.cuh", "hist_tiles.cu", "me_exact.cu", "me_fast_median.cu",
+        "me_fast_round.cu", "raisr_apply.cu", "raisr_apply_generic.cu", "raisr_apply_split.cu",
         "raisr_apply_tile.cuh", "raisr_hash.cu", "raisr_hash_generic.cu", "resize_sep.cu",
         "upscale_planes.cu",
     ]
@@ -148,12 +148,14 @@ def test_kernel_build_inputs():
         "ocvk_raisr_hash_generic", "ocvk_raisr_apply_generic", "ocvk_raisr_apply_split",
         "ocvk_hist256", "ocvk_apply_lut", "ocvk_hist_tiles", "ocvk_blend_blocks",
         "ocvk_me_exact", "ocvk_me_fast_round", "ocvk_me_fast_median", "ocvk_resize_sep",
+        "ocvk_flow_median", "ocvk_flow_median_generic",
     }
     assert set(_build.LAUNCHES) == {
         "upscale_planes", "raisr_hash", "raisr_apply",
         "upscale_planes_generic", "raisr_hash_generic", "raisr_apply_generic",
         "raisr_apply_split", "hist256", "apply_lut", "hist_tiles", "blend_blocks",
         "me_exact", "me_fast_round", "me_fast_median", "resize_sep",
+        "flow_median", "flow_median_generic",
     }
 
 
