@@ -56,7 +56,11 @@ failure raises, and the script exits non-zero without the result line):
    flows (integers plus offsets in [-0.5, 0.5], -0.0 and +0.0) and random
    ones at the hybrid pyramid's three level shapes, 1-pixel-wide and -tall
    flows, odd widths and a flow one float into its allocation, each equal
-   to the plain version (unfold and median) on the card; and phase 8's
+   to the plain version (unfold and median) on the card; the subpixel fit
+   kernel at the same level shapes, 1-pixel frames and 3x37x101 (patches
+   1-31, SAD and SSD, flows in +-6 and +-60, noisy VGA pairs or random
+   frames and frames of ~255 against ~0), equal to the plain version bit
+   for bit; and phase 8's
    bands of a 2160x3840 pair: the fast iteration on each rank's rows
    inside the image with 17 of each neighbour's (557 and 574 rows), the
    exact search on its rows with 10 of each neighbour's (560 rows, zeros
@@ -97,9 +101,11 @@ failure raises, and the script exits non-zero without the result line):
 4c. motion estimation end to end through ``ops.estimate_motion_pyramid`` on
    the Middlebury pair (frame10/frame11, 480x640), 3 levels, smooth 9: the
    exact and the hybrid (fast + seeded exact) schedules, both again with 12
-   subpixel rounds, and both on a batch of 4 noisy pairs; each path's
-   kernels' launch counts (the flow median's among them) must rise during
-   it, its flows must equal the plain path's, the pyramid levels must be
+   subpixel rounds, and the exact, the hybrid and the hybrid with subpixel
+   rounds (the motion cell's call) on a batch of 4 noisy pairs; each path's
+   kernels' launch counts (the flow median's among them, and the subpixel
+   fit's in the subpixel schedules) must rise during it, its flows must
+   equal the plain path's, the pyramid levels must be
    within one level of the numpy oracle's and the coarsest level's exact
    search must equal the numpy oracle's;
 5. quality on held-out frame11: RAISR PSNR above bilinear, and above 35 dB
@@ -148,7 +154,9 @@ failure raises, and the script exits non-zero without the result line):
    median and on random ones, beside its bytes bound and its min/max bound
    (its networks' min and max at the card's compare rate), the plain
    version and one unfold + median call over all planes (the library
-   yardstick), and the generic form at k = 11;
+   yardstick), and the generic form at k = 11; and the subpixel fit
+   kernel alone on the inputs of that pyramid's last fit, beside its bytes
+   bound, its wrapper call and its plain version;
 7. resize (``ops.resize_uint8``, ``ops.resize``; the resize_sep kernel):
    bilinear and bicubic under the three mappings on gray lenna, RGB lenna
    and a 3x256x320 stack, up and down, uint8 and f32 out, float input, the
@@ -356,6 +364,7 @@ GLOBAL_KERNELS = ("hist256", "apply_lut")
 LOCAL_KERNELS = ("hist_tiles", "blend_blocks")
 ME_KERNELS = ("me_exact", "me_fast_round", "me_fast_median")
 FLOW_MEDIAN_KERNELS = ("flow_median", "flow_median_generic")
+SUBPIXEL_KERNELS = ("subpixel_fit",)
 # compare, min and max results a second: 64 a clock on each of the 132 SMs
 # (CUDA C++ Programming Guide, arithmetic instruction throughput, compute
 # capability 9.0) at the 1.98 GHz boost clock (nvidia-smi clocks.max.sm)
@@ -438,6 +447,11 @@ KERNELS = {
     "flow_median_generic": (
         "oclcomputervision_tpu_torch/kernels/csrc/flow_median.cu",
         "none (oclcomputervision_tpu/ops/motion.py median_filter_flow is a jnp comparator network)",
+    ),
+    # no TPU kernel: the JAX fit is plain jnp; this replaces the port's torch ops
+    "subpixel_fit": (
+        "oclcomputervision_tpu_torch/kernels/csrc/subpixel_fit.cu",
+        "none (oclcomputervision_tpu/ops/motion.py refine_flow_subpixel is plain jnp)",
     ),
 }
 
@@ -1687,7 +1701,7 @@ def me_kernel_vs_plain(rng, device):
     from oclcomputervision_tpu_torch.kernels import motion as km
     from oclcomputervision_tpu_torch.ops import motion as om
 
-    errs = {k: 0.0 for k in ME_KERNELS + FLOW_MEDIAN_KERNELS}
+    errs = {k: 0.0 for k in ME_KERNELS + FLOW_MEDIAN_KERNELS + SUBPIXEL_KERNELS}
 
     def check(names, tag, got, want):
         torch.cuda.synchronize()
@@ -1820,6 +1834,42 @@ def me_kernel_vs_plain(rng, device):
                 name = "flow_median" if k in km.FLOW_MEDIAN_COMPILED else "flow_median_generic"
                 check((name,), f"{content} k={k}", km.flow_median_kernel(flow, k),
                       km.flow_median(flow, k))
+    # the subpixel fit, compared by its bits (the sign of a zero too): the
+    # pyramid's level shapes, 1-pixel frames, widths no tile divides; flows
+    # like the rounds leave and +-60 px (past the frame and any halo); noisy
+    # VGA pairs or random frames, and frames of ~255 against ~0 (SSD sums
+    # past 2^24 from 17 x 17 on); one line a shape
+    for n, h, w in ((4, 480, 640), (4, 240, 320), (4, 120, 160), (1, 1, 1), (2, 1, 131),
+                    (1, 129, 1), (3, 37, 101)):
+        if (h, w) == (480, 640):
+            pair = noisy_pairs(rng, n)
+        else:
+            pair = tuple(rng.integers(0, 256, (n, h, w), dtype=np.uint8) for _ in range(2))
+        far = (255 - rng.integers(0, 12, (n, h, w)), rng.integers(0, 12, (n, h, w)))
+        flows = (tie_heavy_flow(rng, (n, h, w), device),
+                 torch.from_numpy(rng.uniform(-60, 60, (n, h, w, 2)).astype("float32")).to(device))
+        worst, cases = 0, 0
+        for frames in (pair, far):
+            f0, f1 = (torch.from_numpy(np.asarray(f, np.uint8)).to(device) for f in frames)
+            for flow in flows:
+                for patch in (1, 3, 5, 7, 17, km.SUBPIXEL_MAX_PATCH):
+                    for costfn in ("sad", "ssd"):
+                        got = km.subpixel_fit_kernel(f0, f1, flow, patch, costfn)
+                        want = km.subpixel_fit(f0, f1, flow, patch, costfn)
+                        torch.cuda.synchronize()
+                        if got.shape != want.shape or got.dtype != want.dtype:
+                            raise AssertionError(f"subpixel_fit {(n, h, w)}: {tuple(got.shape)} "
+                                                 f"{got.dtype}")
+                        worst = max(worst, int((got.view(torch.int32)
+                                                != want.view(torch.int32)).sum().item()))
+                        err = (got.double() - want.double()).abs().max().item()
+                        errs["subpixel_fit"] = max(errs["subpixel_fit"], err)
+                        cases += 1
+        print(f"subpixel_fit {(n, h, w)}, {cases} cases (2 frame pairs, flows +-6 and +-60, "
+              f"patches 1-31, SAD and SSD): at most {worst} vectors differ from the plain "
+              f"version by their bits")
+        if worst:
+            raise AssertionError(f"subpixel_fit {(n, h, w)} differs from its plain version")
     # far seeds (+-200 on about 2 % of the pixels, +-3 elsewhere) and no
     # bound: the blocks that hold one cannot stage their frame-1 window and
     # read frame 1 from device memory, the others stage theirs
@@ -1887,9 +1937,9 @@ def me_main_path(rng, device):
                                             smooth=ME_SMOOTH, **kw)
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
+        shown = {k: launches[k] for k in ME_KERNELS + FLOW_MEDIAN_KERNELS + SUBPIXEL_KERNELS}
         print(f"pyramid {tag}: {a0.shape} uint8 x2 -> "
-              f"{[tuple(f.shape) for f in flows]} {flows[-1].dtype}, "
-              f"launches { {k: launches[k] for k in ME_KERNELS + FLOW_MEDIAN_KERNELS} }")
+              f"{[tuple(f.shape) for f in flows]} {flows[-1].dtype}, launches {shown}")
         missing = [k for k in kernels if launches[k] < 1]
         if missing:
             raise AssertionError(f"pyramid {tag} launched no {missing} kernel")
@@ -1939,6 +1989,7 @@ def me_main_path(rng, device):
     results, rounded, launches = {}, {}, {}
     for name, kw in ME_SCHEDULES.items():
         kernels = (ME_KERNELS if kw["method"] == "fast" else ("me_exact",)) + ("flow_median",)
+        kernels += SUBPIXEL_KERNELS if "subpixel" in kw else ()
         flows, launches[name] = drive(f"{name}, libpng luma", kernels, l0, l1, **kw)
         results[name] = epe(flows[-1].cpu().numpy(), gt)
         integer = bool((flows[-1] == flows[-1].round()).all())
@@ -1948,9 +1999,10 @@ def me_main_path(rng, device):
         rounded[name] = epe(flows[-1].cpu().numpy(), gt)
     bound = ops.exact_flow_bound(ME_LEVELS, search, patch)
     b0, b1 = noisy_pairs(rng, ME_PYRAMID_BATCH)
-    for name in ("exact", "hybrid"):
+    for name in ("exact", "hybrid", "hybrid+subpixel"):
         kw = ME_SCHEDULES[name]
         kernels = (ME_KERNELS if kw["method"] == "fast" else ("me_exact",)) + ("flow_median",)
+        kernels += SUBPIXEL_KERNELS if "subpixel" in kw else ()
         flows, launches[f"batched {name}"] = drive(f"batched {name}", kernels, b0, b1, **kw)
         if name == "exact" and flows[-1].abs().max().item() > bound:
             raise AssertionError(f"exact pyramid flow beyond exact_flow_bound = {bound}")
@@ -1964,10 +2016,11 @@ def me_main_path(rng, device):
     off = {k: v for k, v in results.items() if not abs(v - EPE_TARGETS[k]) <= EPE_TOL}
     if off or not all(v < zero for v in (*results.values(), *rounded.values())):
         raise AssertionError(f"EPE off its target: {off} (zero flow {zero})")
-    # the hybrid schedule on the 4-pair batch launches all four kernels
     results.update({f"{k}, rounded luma": v for k, v in rounded.items()})
-    return ({k: launches["batched hybrid"][k] for k in ME_KERNELS + FLOW_MEDIAN_KERNELS},
-            results, (b0, b1))
+    # the motion cell's call: the hybrid subpixel schedule on the 4-pair batch,
+    # which launches all five kernels
+    shown = ME_KERNELS + FLOW_MEDIAN_KERNELS + SUBPIXEL_KERNELS
+    return ({k: launches["batched hybrid+subpixel"][k] for k in shown}, results, (b0, b1))
 
 
 def wall_ms(fn, *args, warmup: int = 2, iters: int = 5) -> float:
@@ -2062,7 +2115,7 @@ def me_timing(rng, pyramid_batch, card, device):
     print(f"[{card}] upscale_mv x2 'fixed' on {tuple(flow[-2].shape)}: "
           f"{cuda_time_ms(om.upscale_mv, flow[-2], 2, 'fixed'):.4f} ms; refine_flow_subpixel "
           f"on {tuple(flow[-1].shape)}: "
-          f"{cuda_time_ms(om._refine_subpixel, g0, g1, flow[-1], patch, 'sad'):.4f} ms; "
+          f"{cuda_time_ms(om.refine_flow_subpixel, g0, g1, flow[-1], patch, 'sad'):.4f} ms; "
           f"gaussian_pyramid of one frame: "
           f"{cuda_time_ms(ops.gaussian_pyramid, g0, 2, ME_LEVELS, True):.4f} ms")
 
@@ -2115,10 +2168,40 @@ def me_timing(rng, pyramid_batch, card, device):
     return times, e2e
 
 
+def subpixel_fit_timing(inputs, card):
+    """Phase 6c's subpixel fit: the kernel alone on the frames and flow the
+    hybrid subpixel pyramid hands its last fit (4 x 480 x 640), beside its
+    bytes bound, its wrapper call and the plain version."""
+    from oclcomputervision_tpu_torch.kernels import motion as km
+    from oclcomputervision_tpu_torch.utils import cuda_time_ms
+
+    patch = ME_GEOMETRY[1]
+    g0, g1, flow = inputs
+
+    def fk():
+        return km.subpixel_fit_kernel(g0, g1, flow, patch, "sad")
+
+    # the frames read once (frame 1 five times through L1, counted once), the
+    # flow read and the new flow written
+    moved = nbytes(g0, g1) + 2 * flow.numel() * flow.element_size()
+    bms = moved / HBM_BYTES_PER_S * 1e3
+    rec = {"shape": list(flow.shape), "ms": kernel_ms("subpixel_fit", fk),
+           "call_ms": cuda_time_ms(fk),
+           "plain_ms": cuda_time_ms(km.subpixel_fit, g0, g1, flow, patch, "sad", iters=3),
+           "bound_ms": bms, "bound_by": "bytes", "library_ms": None,
+           "cold_l2_ms": kernel_ms("subpixel_fit", fk, cold_l2=True)}
+    print(f"[{card}] subpixel_fit at {tuple(flow.shape)} on the pyramid's last fit: kernel "
+          f"{rec['ms']:.4f} ms (whole call {rec['call_ms']:.4f} ms; {rec['cold_l2_ms']:.4f} ms "
+          f"with L2 flushed before each call), plain {rec['plain_ms']:.4f} ms, bound {bms:.4f} "
+          f"ms (bytes: {moved / 1e6:.1f} MB), library none")
+    return rec
+
+
 def flow_median_timing(rng, b0, b1, card, device):
     """Phase 6c's flow median: the kernel alone at 4 x 480 x 640 x 2, k =
     ME_SMOOTH, on the flows the hybrid subpixel pyramid hands its finest
-    median (the last one) and on random ones, and the generic form at k = 11."""
+    median (the last one) and on random ones, and the generic form at k = 11;
+    and the subpixel fit alone on the inputs of that pyramid's last fit."""
     import torch
 
     from oclcomputervision_tpu_torch.kernels import motion as km
@@ -2131,11 +2214,19 @@ def flow_median_timing(rng, b0, b1, card, device):
         seen.append(flow)
         return km.flow_median_kernel(flow, k)
 
-    stages = om.Stages(km.me_exact_kernel, km.me_fast_kernel, record)
+    fits = []
+
+    def fit(g0, g1, flow, patch, costfn):
+        fits.append((g0, g1, flow))
+        return km.subpixel_fit_kernel(g0, g1, flow, patch, costfn)
+
+    stages = om.Stages(km.me_exact_kernel, km.me_fast_kernel, record, fit)
     om._pyramid(b0, b1, ME_LEVELS, *ME_GEOMETRY, "fixed", "fast", ME_SMOOTH, "auto", "auto",
                 ME_SUBPIXEL, "auto", stages)
     flows = {"the pyramid's": seen[-1], "random": torch.randn_like(seen[-1])}
     del seen
+    times = {"subpixel_fit": subpixel_fit_timing(fits[-1], card)}
+    del fits
 
     def library(flow, k):  # one unfold and one median over every plane
         b, h, w, _ = flow.shape
@@ -2144,7 +2235,6 @@ def flow_median_timing(rng, b0, b1, card, device):
         return torch.nn.functional.unfold(pd, k).median(dim=1).values.reshape(
             b, 2, h, w).movedim(1, -1)
 
-    times = {}
     for name, k in (("flow_median", ME_SMOOTH), ("flow_median_generic", 11)):
         rec = {}
         for content, flow in flows.items():

@@ -64,6 +64,7 @@ LAUNCHES = {
     # the flow's k x k median: compiled k, and any other odd k
     "flow_median": 0,
     "flow_median_generic": 0,
+    "subpixel_fit": 0,
 }
 
 _VP = ctypes.c_void_p
@@ -109,6 +110,8 @@ _SIGNATURES = {
     # flow, out, nimg, h, w, k, stream
     "ocvk_flow_median": [_VP] * 2 + [_I] * 4 + [_VP],
     "ocvk_flow_median_generic": [_VP] * 2 + [_I] * 4 + [_VP],
+    # g0, g1, flow, out, nimg, h, w, ps, ssd, stream
+    "ocvk_subpixel_fit": [_VP] * 4 + [_I] * 5 + [_VP],
 }
 
 _lib: ctypes.CDLL | None = None

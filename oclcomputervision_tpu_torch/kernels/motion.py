@@ -22,12 +22,19 @@ Ports of ``oclcomputervision_tpu/ops/pallas/me_pallas.py`` and
   planes and the batch) replace no TPU kernel: the JAX package's
   ``median_filter_flow`` is a jnp comparator network. [B, H, W, 2] float32
   -> the k x k median of each plane, edges replicated.
+- ``subpixel_fit`` (plain: five gathers and box sums, then the fit as torch
+  ops) / ``subpixel_fit_kernel`` (``csrc/subpixel_fit.cu``, one launch for
+  the batch) replace no TPU kernel: the JAX package's
+  ``refine_flow_subpixel`` is plain jnp. [B, H, W] uint8 frames and a
+  [B, H, W, 2] float32 flow -> the rounded flow plus its subpixel offset.
 
 The searches' arithmetic is integer and a median selects, so each kernel
 equals its plain version, the JAX package's XLA twins and the numpy oracle
-bit for bit (the flow median up to the sign of a zero). Each wrapper takes
-the plain version for a CPU tensor and launches its kernels for a CUDA
-tensor.
+bit for bit (the flow median up to the sign of a zero). The subpixel fit's
+costs are integer and its float tail the same correctly rounded operations
+in the same order, so it too equals its plain version bit for bit. Each
+wrapper takes the plain version for a CPU tensor and launches its kernels
+for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ FAST_MAX_PATCH = 31  # csrc/me_fast_round.cu: a warp's 32 columns hold the patch
 INT_COSTS = ("sad", "ssd")  # the costs the kernels take
 FLOAT_COSTS = ("wsad_shipped", "wsad")  # exact search only, plain version only
 FLOW_MEDIAN_COMPILED = (3, 5, 7, 9)  # csrc/flow_median.cu's flow_median_kernel<K>; others: generic
+SUBPIXEL_MAX_PATCH = 31  # csrc/subpixel_fit.cu: a block's staged differences fit 48 KB
 
 
 def gather_padded(img: torch.Tensor, yy: torch.Tensor, xx: torch.Tensor) -> torch.Tensor:
@@ -470,6 +478,64 @@ def flow_median_kernel(flow: torch.Tensor, k: int) -> torch.Tensor:
     out = torch.empty_like(flow)
     name = "flow_median" if k in FLOW_MEDIAN_COMPILED else "flow_median_generic"
     launch(name, f"ocvk_{name}", flow.device, flow.data_ptr(), out.data_ptr(), b, h, w, k)
+    return out
+
+
+def subpixel_fit(g0: torch.Tensor, g1: torch.Tensor, flow: torch.Tensor, patch_size: int,
+                 costfn: str) -> torch.Tensor:
+    """Plain version of the subpixel fit: [B, H, W] uint8 frames, [B, H, W, 2]
+    flow -> round(flow) + offset."""
+    h, w = g0.shape[1:]
+    ys, xs = _grid(h, w, g0.device)
+    iu = torch.round(flow[..., 0]).to(torch.int64)
+    iv = torch.round(flow[..., 1]).to(torch.int64)
+    f0 = g0.to(torch.int32)
+
+    def cost(dy, dx):
+        d = f0 - gather_padded(g1, ys + iv + dy, xs + iu + dx).to(torch.int32)
+        return _boxsum(d.abs() if costfn == "sad" else d * d, patch_size).to(torch.float32)
+
+    c0 = cost(0, 0)
+    cxm, cxp = cost(0, -1), cost(0, 1)
+    cym, cyp = cost(-1, 0), cost(1, 0)
+
+    def delta(cm, cc, cp):
+        if costfn == "sad":
+            # SAD of a translated signal is V-shaped: the equiangular fit
+            d = (cm - cp) / torch.clamp(2.0 * (torch.maximum(cm, cp) - cc), min=1e-12)
+        else:  # ssd: quadratic near the minimum - parabola fit
+            denom = cm + cp - 2.0 * cc
+            d = torch.where(denom > 0, (cm - cp) / torch.clamp(2.0 * denom, min=1e-12), 0.0)
+        # only trust an interior minimum of the 1-D cost section
+        d = torch.where((cm >= cc) & (cp >= cc), d, 0.0)
+        return torch.clamp(d, -0.5, 0.5)
+
+    du = delta(cxm, c0, cxp)
+    dv = delta(cym, c0, cyp)
+    return torch.stack([iu.to(torch.float32) + du, iv.to(torch.float32) + dv], dim=-1)
+
+
+def subpixel_fit_kernel(g0: torch.Tensor, g1: torch.Tensor, flow: torch.Tensor,
+                        patch_size: int = 5, costfn: str = "sad") -> torch.Tensor:
+    """Wrapper: ``subpixel_fit`` for CPU tensors; for CUDA tensors
+    (contiguous [B, H, W] uint8 frames, a contiguous float32 [B, H, W, 2]
+    flow; SAD or SSD, an odd patch size up to SUBPIXEL_MAX_PATCH) one launch
+    of ``subpixel_fit_kernel``. Flows are assumed finite."""
+    if g0.device.type == "cpu":
+        return subpixel_fit(g0, g1, flow, patch_size, costfn)
+    if costfn not in INT_COSTS:
+        raise ValueError(f"the kernel takes {INT_COSTS}, got costfn {costfn!r}")
+    if patch_size < 1 or patch_size % 2 == 0 or patch_size > SUBPIXEL_MAX_PATCH:
+        raise ValueError(f"unsupported patch size {patch_size}: odd, at most {SUBPIXEL_MAX_PATCH}")
+    _check_frames(g0, g1, flow)
+    require_cuda_tensor(g0, "g0", torch.uint8, 3)
+    require_cuda_tensor(g1, "g1", torch.uint8, 3)
+    require_cuda_tensor(flow, "flow", torch.float32, 4)
+    b, h, w = g0.shape
+    _check_grid(b, h, w)
+    out = torch.empty_like(flow)
+    launch("subpixel_fit", "ocvk_subpixel_fit", g0.device, g0.data_ptr(), g1.data_ptr(),
+           flow.data_ptr(), out.data_ptr(), b, h, w, patch_size, int(costfn == "ssd"))
     return out
 
 

@@ -13,7 +13,9 @@ Port of ``oclcomputervision_tpu/ops/motion.py`` with its Pallas paths
   (``median_filter_flow``: the hand-written ``kernels.motion.flow_median_kernel``
   for a CUDA tensor, the plain ``F.unfold`` and ``Tensor.median`` of
   ``kernels.motion.flow_median`` for a CPU one), seed upscaling
-  (``upscale_mv``), subpixel rounds (``refine_flow_subpixel``) and the
+  (``upscale_mv``), subpixel rounds (``refine_flow_subpixel``: the
+  hand-written ``kernels.motion.subpixel_fit_kernel`` for a CUDA tensor, the
+  plain torch ops of ``kernels.motion.subpixel_fit`` for a CPU one) and the
   hybrid fast + seeded-exact schedule.
 
 Under a profiler a pyramid call is the span ``ocv.motion`` of
@@ -22,7 +24,8 @@ pyramids), ``ocv.motion.exact`` (an exact search; a refinement's bound
 sizing and clip with it), ``ocv.motion.fast`` (the fast iteration with its
 seed-base gather), ``ocv.motion.median`` (each ``median_filter_flow``: on
 the card one ``flow_median`` launch),
-``ocv.motion.subpixel`` (each subpixel fit) and ``ocv.motion.upscale``
+``ocv.motion.subpixel`` (each subpixel fit: on the card one
+``subpixel_fit`` launch) and ``ocv.motion.upscale``
 (each ``upscale_mv``).
 
 Numpy inputs run on the card unless ``device="cpu"`` is passed; a torch
@@ -61,18 +64,20 @@ SEED_BOUND_QUANTA = (8, 12, 16, 20, 24, 32)
 
 
 class Stages(NamedTuple):
-    """The three kernel stages the motion ops run."""
+    """The four kernel stages the motion ops run."""
 
     exact: Callable
     fast: Callable
     median: Callable
+    subpixel: Callable
 
 
 # the kernel wrappers (plain versions for CPU tensors, kernels for CUDA ones)
 KERNEL_STAGES = Stages(kmotion.me_exact_kernel, kmotion.me_fast_kernel,
-                       kmotion.flow_median_kernel)
+                       kmotion.flow_median_kernel, kmotion.subpixel_fit_kernel)
 # the plain PyTorch versions on any device (the kernels' reference on the card)
-PLAIN_STAGES = Stages(kmotion.me_exact, kmotion.me_fast, kmotion.flow_median)
+PLAIN_STAGES = Stages(kmotion.me_exact, kmotion.me_fast, kmotion.flow_median,
+                      kmotion.subpixel_fit)
 
 
 def _frames(gray0, gray1, device, op: str):
@@ -376,38 +381,6 @@ def median_filter_flow(mv, k: int = 5, *, device=None) -> torch.Tensor:
     return out.reshape(t.shape)
 
 
-def _refine_subpixel(g0, g1, flow, patch_size: int, costfn: str) -> torch.Tensor:
-    """[B, H, W] uint8 frames, [B, H, W, 2] flow -> round(flow) + offset."""
-    h, w = g0.shape[1:]
-    ys, xs = kmotion._grid(h, w, g0.device)
-    iu = torch.round(flow[..., 0]).to(torch.int64)
-    iv = torch.round(flow[..., 1]).to(torch.int64)
-    f0 = g0.to(torch.int32)
-
-    def cost(dy, dx):
-        d = f0 - kmotion.gather_padded(g1, ys + iv + dy, xs + iu + dx).to(torch.int32)
-        return kmotion._boxsum(d.abs() if costfn == "sad" else d * d, patch_size).to(torch.float32)
-
-    c0 = cost(0, 0)
-    cxm, cxp = cost(0, -1), cost(0, 1)
-    cym, cyp = cost(-1, 0), cost(1, 0)
-
-    def delta(cm, cc, cp):
-        if costfn == "sad":
-            # SAD of a translated signal is V-shaped: the equiangular fit
-            d = (cm - cp) / torch.clamp(2.0 * (torch.maximum(cm, cp) - cc), min=1e-12)
-        else:  # ssd: quadratic near the minimum - parabola fit
-            denom = cm + cp - 2.0 * cc
-            d = torch.where(denom > 0, (cm - cp) / torch.clamp(2.0 * denom, min=1e-12), 0.0)
-        # only trust an interior minimum of the 1-D cost section
-        d = torch.where((cm >= cc) & (cp >= cc), d, 0.0)
-        return torch.clamp(d, -0.5, 0.5)
-
-    du = delta(cxm, c0, cxp)
-    dv = delta(cym, c0, cyp)
-    return torch.stack([iu.to(torch.float32) + du, iv.to(torch.float32) + dv], dim=-1)
-
-
 def refine_flow_subpixel(
     gray0, gray1, flow, patch_size: int = 5, costfn: str = "sad", *, device=None
 ) -> torch.Tensor:
@@ -420,12 +393,18 @@ def refine_flow_subpixel(
     the minimum within [-0.5, 0.5] of the integer winner. Pixels whose
     integer flow is not an interior minimum keep their integer value.
     Accepts [H, W] or [B, H, W] frames with flow [..., H, W, 2].
+
+    A CUDA tensor runs the hand-written kernel (``csrc/subpixel_fit.cu``,
+    one launch for the batch; odd patches up to 31), a CPU tensor the plain
+    version (``kernels.motion.subpixel_fit``); both give the same flow bit
+    for bit. Flows are assumed finite.
     """
     if costfn not in kmotion.INT_COSTS:
         raise ValueError(f"subpixel refinement needs sad/ssd, got {costfn!r}")
     g0, g1, single = _frames(gray0, gray1, device, "refine_flow_subpixel")
     fl = _flow(flow, None, g0)
-    out = _refine_subpixel(g0, g1, fl[None] if single else fl, patch_size, costfn)
+    fl = (fl[None] if single else fl).contiguous()
+    out = kmotion.subpixel_fit_kernel(g0, g1, fl, patch_size, costfn)
     return out[0] if single else out
 
 
@@ -514,7 +493,7 @@ def _pyramid(
         if subpixel > 0:
             for _ in range(subpixel):
                 with tracing.span("ocv.motion.subpixel"):
-                    mv = _refine_subpixel(p0, p1, mv, patch_size, "sad")
+                    mv = stages.subpixel(p0, p1, mv, patch_size, "sad")
                 with tracing.span("ocv.motion.median"):
                     mv = stages.median(mv, sk)
         elif smooth > 0:

@@ -12,10 +12,9 @@ bit by bit) against ``np.median``; and, by reading the files, the names the
 benchmark's glue reader finds the kernels by.
 
 On the card (marker ``cuda``, skipped without one): the kernel against the
-plain version on the card, launches and host syncs. Run there with
-``python -m pytest --noconftest -p no:cacheprovider -m cuda
-tests/test_torch_flow_median.py`` (this file imports JAX only inside the
-tests that compare with it).
+plain version on the card, launches and host syncs. Run there with the
+repository's card command, ``python -m pytest -p no:cacheprovider -m cuda
+tests/`` (this file imports JAX only inside the tests that compare with it).
 """
 
 import os

@@ -139,7 +139,7 @@ def test_kernel_build_inputs():
         "hist_common.cuh", "hist_tiles.cu", "me_exact.cu", "me_fast_median.cu",
         "me_fast_round.cu", "raisr_apply.cu", "raisr_apply_generic.cu", "raisr_apply_split.cu",
         "raisr_apply_tile.cuh", "raisr_hash.cu", "raisr_hash_generic.cu", "resize_sep.cu",
-        "upscale_planes.cu",
+        "subpixel_fit.cu", "upscale_planes.cu",
     ]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     # every wrapper's C entry point has declared argument types
@@ -148,14 +148,14 @@ def test_kernel_build_inputs():
         "ocvk_raisr_hash_generic", "ocvk_raisr_apply_generic", "ocvk_raisr_apply_split",
         "ocvk_hist256", "ocvk_apply_lut", "ocvk_hist_tiles", "ocvk_blend_blocks",
         "ocvk_me_exact", "ocvk_me_fast_round", "ocvk_me_fast_median", "ocvk_resize_sep",
-        "ocvk_flow_median", "ocvk_flow_median_generic",
+        "ocvk_flow_median", "ocvk_flow_median_generic", "ocvk_subpixel_fit",
     }
     assert set(_build.LAUNCHES) == {
         "upscale_planes", "raisr_hash", "raisr_apply",
         "upscale_planes_generic", "raisr_hash_generic", "raisr_apply_generic",
         "raisr_apply_split", "hist256", "apply_lut", "hist_tiles", "blend_blocks",
         "me_exact", "me_fast_round", "me_fast_median", "resize_sep",
-        "flow_median", "flow_median_generic",
+        "flow_median", "flow_median_generic", "subpixel_fit",
     }
 
 
