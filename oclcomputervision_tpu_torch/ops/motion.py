@@ -28,6 +28,14 @@ the card one ``flow_median`` launch),
 ``subpixel_fit`` launch) and ``ocv.motion.upscale``
 (each ``upscale_mv``).
 
+On the card a pyramid call whose arguments make it free of host syncs
+(``replays``) is captured once as a CUDA graph and then replayed: a key's
+(device, frame shape, arguments) first call runs eagerly, its second
+captures the graph, and that call and every later one replay it, in the
+span ``ocv.motion.replay`` (the stages' spans do not run: a replay runs no
+Python). ``GRAPH_CALLS`` counts the calls by path; ``kernels._build.LAUNCHES``
+counts the launches of eager calls and captures, never a replay's.
+
 Numpy inputs run on the card unless ``device="cpu"`` is passed; a torch
 tensor runs on its own device (the CUDA kernels for a CUDA tensor, their
 plain versions for a CPU tensor). Frames are uint8 [H, W] or batch-first
@@ -47,6 +55,8 @@ gates (one layout of the same search), and any jit-versus-eager distinction.
 
 from __future__ import annotations
 
+import collections
+import functools
 import warnings
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
@@ -61,6 +71,10 @@ from oclcomputervision_tpu_torch.oracle.motion import me_steps
 from oclcomputervision_tpu_torch.utils import tracing
 
 SEED_BOUND_QUANTA = (8, 12, 16, 20, 24, 32)
+GRAPH_KEYS = 8  # keys whose graph (or first call) is kept; the least recently used goes first
+# pyramid calls by path: eager (a CPU tensor, arguments that sync, a key's
+# first call), capture (a key's second: captured, then replayed), replay
+GRAPH_CALLS = {"eager": 0, "capture": 0, "replay": 0}
 
 
 class Stages(NamedTuple):
@@ -80,9 +94,9 @@ PLAIN_STAGES = Stages(kmotion.me_exact, kmotion.me_fast, kmotion.flow_median,
                       kmotion.subpixel_fit)
 
 
-def _frames(gray0, gray1, device, op: str):
-    """Two uint8 frames [H, W] or batch-first [B, H, W] -> ([B, H, W] each,
-    whether the input was one pair)."""
+def _frame_views(gray0, gray1, device, op: str):
+    """Two uint8 frames [H, W] or batch-first [B, H, W] -> ([B, H, W] views
+    of each, whether the input was one pair)."""
     g0 = as_tensor(gray0, device)
     g1 = as_tensor(gray1, g0.device)
     if g0.dtype != torch.uint8 or g1.dtype != torch.uint8:
@@ -96,6 +110,12 @@ def _frames(gray0, gray1, device, op: str):
     single = g0.ndim == 2
     if single:
         g0, g1 = g0[None], g1[None]
+    return g0, g1, single
+
+
+def _frames(gray0, gray1, device, op: str):
+    """``_frame_views``, each frame contiguous."""
+    g0, g1, single = _frame_views(gray0, gray1, device, op)
     return g0.contiguous(), g1.contiguous(), single
 
 
@@ -324,18 +344,22 @@ def _halfpixel_taps(n_out: int, n_in: int):
     return i0, i1, u.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=64)
+def _halfpixel_table(n_out: int, n_in: int, device: torch.device):
+    """``_halfpixel_taps`` on ``device``, copied there once: (i0, i1, 1 - u,
+    u), each [n_out]. A copy from host memory synchronises the card, and a
+    CUDA graph cannot hold one."""
+    i0, i1, u = _halfpixel_taps(n_out, n_in)
+    return tuple(torch.from_numpy(t).to(device) for t in (i0, i1, 1 - u, u))
+
+
 def _resize_halfpixel(a: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """cv2.INTER_LINEAR-style resize (half-pixel centres) of float32
     [..., H, W]: rows first, then columns."""
-    dev = a.device
-    y0, y1, vy = _halfpixel_taps(out_hw[0], a.shape[-2])
-    x0, x1, ux = _halfpixel_taps(out_hw[1], a.shape[-1])
-
-    def t(arr):
-        return torch.from_numpy(arr).to(dev)
-
-    rows = a[..., t(y0), :] * t(1 - vy)[:, None] + a[..., t(y1), :] * t(vy)[:, None]
-    return rows[..., t(x0)] * t(1 - ux) + rows[..., t(x1)] * t(ux)
+    y0, y1, wy0, wy1 = _halfpixel_table(out_hw[0], a.shape[-2], a.device)
+    x0, x1, wx0, wx1 = _halfpixel_table(out_hw[1], a.shape[-1], a.device)
+    rows = a[..., y0, :] * wy0[:, None] + a[..., y1, :] * wy1[:, None]
+    return rows[..., x0] * wx0 + rows[..., x1] * wx1
 
 
 def resize_bilinear_halfpixel(img, out_hw: Tuple[int, int], *, device=None) -> torch.Tensor:
@@ -439,17 +463,107 @@ def estimate_motion_pyramid(
     ``refine``: 'auto' (active for method='fast' and more than one level)
     runs the HYBRID schedule: the coarsest level by the unseeded exact
     search, every later level by the fast iteration followed by ONE
-    seeded-exact pass around its median-smoothed flow, whose bound is sized
-    from that flow ({8..32}) and which the flow is clipped to. 'exact'
-    forces the same refinement passes for any method; 'none' disables them.
+    seeded-exact pass around its median-smoothed flow, whose seed base is
+    clamped to [-32, 32] (the largest of SEED_BOUND_QUANTA). 'exact' forces
+    the same refinement passes for any method; 'none' disables them.
+
+    On the card, where ``replays`` admits the arguments, a key's second
+    call captures a CUDA graph and later calls replay it (module
+    docstring); the flows are the eager call's, in fresh tensors.
     """
     with tracing.span("ocv.motion"):
-        g0, g1, single = _frames(gray0, gray1, device, "estimate_motion_pyramid")
-        flows = _pyramid(
-            g0, g1, levels, search_size, patch_size, seed_mode, method, smooth, warp_bound,
-            seed_bound, subpixel, refine,
-        )
+        g0, g1, single = _frame_views(gray0, gray1, device, "estimate_motion_pyramid")
+        args = (levels, search_size, patch_size, seed_mode, method, smooth, warp_bound,
+                seed_bound, subpixel, refine)
+        if replays(g0.device, levels, method, warp_bound, seed_bound):
+            with torch.cuda.device(g0.device):
+                flows = _replayed(g0, g1, args)
+        else:
+            flows = _eager(g0, g1, args)
         return [f[0] for f in flows] if single else flows
+
+
+def replays(device, levels: int, method: str, warp_bound, seed_bound) -> bool:
+    """Whether a pyramid call on ``device`` with these arguments may replay
+    as a CUDA graph: a CUDA device, at least one level, and no stage that
+    reads back to the host once the seed upscale's tap tables are cached.
+    Only a seeded level (any after the first) may read back: the fast
+    search under an int ``warp_bound`` and the exact search under
+    ``seed_bound`` 'auto' or an int read the seed's largest displacement
+    back (for the saturation warning, and 'auto' to size the bound). The
+    hybrid refinement's bound is fixed and reads nothing back."""
+    if torch.device(device).type != "cuda" or levels < 1:
+        return False
+    if levels == 1:
+        return True
+    if method == "fast":
+        return warp_bound in ("auto", "gather")
+    return seed_bound in (None, "none")
+
+
+def _eager(g0, g1, args) -> List[torch.Tensor]:
+    GRAPH_CALLS["eager"] += 1
+    return _pyramid(g0.contiguous(), g1.contiguous(), *args)
+
+
+class _Replay(NamedTuple):
+    """A captured pyramid call."""
+
+    graph: "torch.cuda.CUDAGraph"
+    frames: Tuple[torch.Tensor, torch.Tensor]  # the static [B, H, W] inputs
+    flows: List[torch.Tensor]  # the static outputs, overwritten by each replay
+    done: "torch.cuda.Event"  # recorded once a replay's flows are copied out
+    # the tap tables the graph reads, held while it lives: the cache may drop them
+    taps: list
+
+
+# (device, frame shape, arguments) -> None once its first call has run
+# eagerly, then its captured call; the most recently used last
+_GRAPHS: "collections.OrderedDict[tuple, Optional[_Replay]]" = collections.OrderedDict()
+
+
+def _replayed(g0, g1, args) -> List[torch.Tensor]:
+    """A call that ``replays`` admits: eager at its key's first call (which
+    loads the kernel library and fills the tap cache, neither of which a
+    capture may do), captured at its second, replayed from then on."""
+    key = (g0.device, tuple(g0.shape), *args)
+    if key not in _GRAPHS:
+        flows = _eager(g0, g1, args)
+        _GRAPHS[key] = None
+        while len(_GRAPHS) > GRAPH_KEYS:
+            _GRAPHS.popitem(last=False)
+        return flows
+    _GRAPHS.move_to_end(key)
+    rep = _GRAPHS[key]
+    if rep is None:
+        rep = _GRAPHS[key] = _capture(g0, args)
+        GRAPH_CALLS["capture"] += 1
+    else:
+        GRAPH_CALLS["replay"] += 1
+    with tracing.span("ocv.motion.replay"):
+        # the last replay's flows are copied out before its buffers are
+        # reused, on whichever stream each call runs
+        torch.cuda.current_stream().wait_event(rep.done)
+        rep.frames[0].copy_(g0)
+        rep.frames[1].copy_(g1)
+        rep.graph.replay()
+        flows = [f.clone() for f in rep.flows]
+        rep.done.record()
+        return flows
+
+
+def _capture(g0, args) -> _Replay:
+    """Capture the pyramid call of frames shaped as ``g0`` (on a side
+    stream: nothing runs) around static frames of that shape."""
+    frames = (torch.empty(g0.shape, dtype=torch.uint8, device=g0.device),
+              torch.empty(g0.shape, dtype=torch.uint8, device=g0.device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        flows = _pyramid(*frames, *args)
+    # each upscale_mv of a level's [B, h, w, 2] flow reads the tables of
+    # (2h, h) and (2w, w), which the capture has just used
+    taps = [_halfpixel_table(2 * n, n, g0.device) for f in flows[:-1] for n in f.shape[1:3]]
+    return _Replay(graph, frames, flows, torch.cuda.Event(), taps)
 
 
 def _pyramid(
@@ -478,18 +592,15 @@ def _pyramid(
                 seed_bound, stages,
             )
         if do_refine and lv > 0:
-            # the seed is our own intermediate: size the bound from it,
-            # clip the outlier tail to it and pass the same bound down, so
-            # the pass never saturates and never warns
+            # the seed is our own intermediate, and the search reads it as
+            # clamp(trunc(seed), -B, B) alone: the largest quantum gives the
+            # flow of every smaller one that holds the seed, with no
+            # read-back to size B, and the pass never warns
             with tracing.span("ocv.motion.median"):
                 rs = stages.median(mv, sk)
             with tracing.span("ocv.motion.exact"):
-                rb = _quantum(_base_max(rs))
-                rs = torch.clamp(rs, -float(rb), float(rb))
-                mv = _estimate(
-                    p0, p1, rs, search_size, patch_size, "fixed", "exact", "sad", warp_bound, rb,
-                    stages,
-                )
+                mv = stages.exact(p0, p1, search_size, patch_size, "sad", rs,
+                                  SEED_BOUND_QUANTA[-1], "fixed")
         if subpixel > 0:
             for _ in range(subpixel):
                 with tracing.span("ocv.motion.subpixel"):
