@@ -11,7 +11,10 @@ interleaved align-corners bilinear resize of ``ops/interpolation`` and, for
 colour, an RGB->YUV->RGB round trip: torch ops, no kernel. Under a
 profiler the call is the span ``ocv.raisr`` of ``utils.tracing``, with the
 full path's stages ``ocv.raisr.in``, ``.upscale``, ``.hash``, ``.apply``
-and ``.out`` inside it.
+and ``.out`` inside it; a colour call adds ``ocv.raisr.csc`` around each
+colour-space conversion (after the upscale and before the quantisation)
+and ``blend='ct'`` adds ``ocv.raisr.ct`` (the census weights and the
+blend), each counting the bytes the card's allocator hands out in it.
 
 Plane convention (shared with the kernels and with the JAX package):
 ``planes[a*s + b][hp + i, hp + j] = up_e(s*i + a, s*j + b)``, where up_e is
@@ -28,6 +31,7 @@ of the port calls.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -167,10 +171,23 @@ PLAIN_STAGES = Stages(
 )
 
 
+@functools.lru_cache(maxsize=None)
+def _ct_weight_table(device: torch.device) -> torch.Tensor:
+    """The census weight of each LCC 0..8, f32 [9] on ``device``: the
+    correctly rounded clip((8 - LCC) / 6, 0, 1), divided on the host (a
+    CUDA division by a Python scalar multiplies by the reciprocal: 5/6
+    would come out one ulp high). Made once per device."""
+    lcc = np.arange(9, dtype=np.float32)
+    w = np.clip((np.float32(8.0) - lcc) / np.float32(6.0), 0.0, 1.0).astype(np.float32)
+    return torch.from_numpy(w).to(device)
+
+
 def _ct_blend_weight_planes(up_pl, s: int, hp: int, h2p: int, w2p: int):
     """Census-transform blend weights in plane space
     (``ops/raisr.py:_ct_blend_weight_planes``): up_pl [B, s*s, hq, wq] luma
-    planes -> weights [B, s*s, h2p, w2p], w = clip((8 - LCC)/6, 0, 1)."""
+    planes -> weights [B, s*s, h2p, w2p], w = clip((8 - LCC)/6, 0, 1), read
+    from ``_ct_weight_table`` so that every device gives the same bits."""
+    table = _ct_weight_table(up_pl.device)
 
     def rd(a, b, dr, dc):
         a2, ro = (a + dr) % s, (a + dr) // s
@@ -182,8 +199,11 @@ def _ct_blend_weight_planes(up_pl, s: int, hp: int, h2p: int, w2p: int):
         for b in range(s):
             center = rd(a, b, 0, 0)
             bits = [rd(a, b, dr, dc) >= center for dr, dc in oracle_raisr.CT_RING]
-            lcc = sum((bits[k] != bits[(k + 1) % 8]).float() for k in range(8))
-            outs.append(torch.clamp((8.0 - lcc) / 6.0, 0.0, 1.0))
+            changes = torch.stack([bits[k] != bits[(k + 1) % 8] for k in range(8)])
+            # LCC summed as uint8 (a bool sum would first copy the changes
+            # to int64), then widened to index the table
+            lcc = changes.view(torch.uint8).sum(0, dtype=torch.uint8)
+            outs.append(table[lcc.long()])
     return torch.stack(outs, dim=1)
 
 
@@ -203,6 +223,13 @@ def interleave_planes(planes: torch.Tensor, s: int, h: int, w: int) -> torch.Ten
         .permute(0, 3, 1, 4, 2)
         .reshape(bsz, s * h2p, s * w2p)[:, :h, :w]
     )
+
+
+def _csc_planes(planes: list, mat: np.ndarray) -> list:
+    """3x3 colour-space conversion of per-channel planes: row r of ``mat``
+    summed left to right in f32; a fourth (alpha) channel passes through."""
+    out = [sum(float(mat[r, c]) * planes[c] for c in range(3)) for r in range(3)]
+    return out + list(planes[3:])
 
 
 def _raisr_planes_batched(
@@ -240,12 +267,8 @@ def _raisr_planes_batched(
     if nchan == 1:
         yuv_planes = chan_planes
     else:
-        csc = oracle_raisr.RGB2YUV
-        yuv_planes = [
-            sum(float(csc[r, c]) * chan_planes[c] for c in range(3)) for r in range(3)
-        ]
-        if nchan == 4:
-            yuv_planes.append(chan_planes[3])  # alpha passes through
+        with tracing.span("ocv.raisr.csc", alloc=x01.device):
+            yuv_planes = _csc_planes(chan_planes, oracle_raisr.RGB2YUV)
 
     with tracing.span("ocv.raisr.hash"):
         bucket_pl = stages.hash(yuv_planes[0], cfg, hp, h2p, w2p)
@@ -256,26 +279,23 @@ def _raisr_planes_batched(
         stacked_out = stages.apply(stacked_in, bucket_pl, filters, cfg)
         filtered = [stacked_out[c * bsz : (c + 1) * bsz] for c in range(nc)]
 
-    with tracing.span("ocv.raisr.out"):
-        if cfg.blend == "ct":
-            # luma-derived structure weights fade every filtered channel back to
-            # the cheap upscale in unstructured regions
+    if cfg.blend == "ct":
+        with tracing.span("ocv.raisr.ct", alloc=x01.device):
+            # luma-derived structure weights fade every filtered channel back
+            # to the cheap upscale in unstructured regions
             wgt = _ct_blend_weight_planes(yuv_planes[0], s, hp, h2p, w2p)
             filtered = [
                 wgt * f + (1.0 - wgt) * yuv_planes[c][:, :, hp : hp + h2p, hp : hp + w2p]
                 for c, f in enumerate(filtered)
             ]
 
-        if nchan == 1:
-            out_pl = [filtered[0]]
-        else:
-            inv = oracle_raisr.YUV2RGB
-            out_pl = [
-                sum(float(inv[r, c]) * filtered[c] for c in range(3)) for r in range(3)
-            ]
-            if nchan == 4:
-                out_pl.append(filtered[3])
+    if nchan == 1:
+        out_pl = [filtered[0]]
+    else:
+        with tracing.span("ocv.raisr.csc", alloc=x01.device):
+            out_pl = _csc_planes(filtered, oracle_raisr.YUV2RGB)
 
+    with tracing.span("ocv.raisr.out"):
         # torch.round, like jnp.round, rounds half to even
         u8 = [torch.clamp(torch.round(o * 255.0), 0, 255).to(torch.uint8) for o in out_pl]
         # interleave in uint8 (4x less traffic than f32), then crop

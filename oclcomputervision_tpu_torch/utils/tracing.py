@@ -22,7 +22,12 @@ span
   parent, its host start and end on ``time.perf_counter()`` and ``syncs``,
   the host times of the synchronising CUDA calls made while it was the
   innermost open span;
-- touches nothing on the card: no event, no launch, no allocation.
+- touches nothing on the card: no event, no launch, no allocation;
+- given a CUDA device (``span(name, alloc=device)``), records in
+  ``alloc_bytes`` the bytes the card's caching allocator hands out on that
+  device while the span is open: the difference of the allocator's
+  cumulative ``allocated_bytes.all.allocated`` statistic across the span,
+  read on the host with no CUDA call. Otherwise ``alloc_bytes`` is None.
 
 Syncs are caught with the card's sync debug mode at "warn", under which
 every synchronising CUDA call raises the warning ``SYNC_WARNING``. The
@@ -68,14 +73,16 @@ class Span:
     while a profiler is active. ``t0`` is read just after the profiler range
     opens and ``t1`` just before it closes."""
 
-    __slots__ = ("name", "call", "parent", "t0", "t1", "syncs", "_range")
+    __slots__ = ("name", "call", "parent", "t0", "t1", "syncs", "alloc_bytes", "_alloc", "_range")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, alloc: Optional[torch.device] = None):
         self.name = name
         self.call: Optional[int] = None
         self.parent: Optional[int] = None  # record index of the enclosing span
         self.t1: Optional[float] = None
         self.syncs: List[float] = []  # host times of the syncs while innermost
+        self.alloc_bytes: Optional[int] = None  # bytes allocated on ``alloc`` while open
+        self._alloc = alloc if alloc is not None and alloc.type == "cuda" else None
 
     def __enter__(self) -> "Span":
         tr = _TRACER
@@ -93,9 +100,13 @@ class Span:
         if outermost and torch.cuda.is_initialized() and torch.cuda.get_sync_debug_mode() == 0:
             tr.mode = 0
             torch.cuda.set_sync_debug_mode("warn")
+        if self._alloc is not None:
+            self.alloc_bytes = -_allocated(self._alloc)
         return self
 
     def __exit__(self, *exc) -> bool:
+        if self._alloc is not None:
+            self.alloc_bytes += _allocated(self._alloc)
         self.t1 = _clock()
         self._range.__exit__(None, None, None)
         self._range = None
@@ -108,7 +119,14 @@ class Span:
 
     def __repr__(self) -> str:
         return (f"Span({self.name!r}, call={self.call}, parent={self.parent}, "
-                f"t0={self.t0}, t1={self.t1}, syncs={self.syncs})")
+                f"t0={self.t0}, t1={self.t1}, syncs={self.syncs}, "
+                f"alloc_bytes={self.alloc_bytes})")
+
+
+def _allocated(device: torch.device) -> int:
+    """The caching allocator's cumulative bytes handed out on ``device``
+    (``torch.cuda.memory_stats(device)["allocated_bytes.all.allocated"]``)."""
+    return torch.cuda.memory_stats_as_nested_dict(device)["allocated_bytes"]["all"]["allocated"]
 
 
 class _Tracer:
@@ -172,22 +190,23 @@ class _Skip:
 _SKIP = _Skip()
 
 
-def span(name: str):
+def span(name: str, alloc: Optional[torch.device] = None):
     """A context manager for stage ``name``: the shared no-op unless a
-    profiler is active and the call is sampled (module docstring)."""
+    profiler is active and the call is sampled (module docstring). ``alloc``:
+    the device whose allocations the span counts (only a CUDA one is)."""
     tr = _TRACER
     if not _profiling():
         if tr.hook is not None and not tr.open:
             tr.stop()
         return _OFF
     if tr.open:
-        return Span(name)
+        return Span(name, alloc)
     if tr.skipping:
         return _OFF
     if tr.hook is None:
         tr.start()
     tr.calls += 1
-    return _SKIP if (tr.calls - 1) % SAMPLE_EVERY else Span(name)
+    return _SKIP if (tr.calls - 1) % SAMPLE_EVERY else Span(name, alloc)
 
 
 def records() -> List[Span]:
